@@ -19,37 +19,17 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, attention
-from .transformer import TransformerConfig, TransformerLM, _rms_norm, _rope
-
-
-def _project_qkv(bp, y, cfg: TransformerConfig):
-    b, t, _ = y.shape
-    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (y @ bp["wq"]).reshape(b, t, h, d)
-    k = (y @ bp["wk"]).reshape(b, t, kv, d)
-    v = (y @ bp["wv"]).reshape(b, t, kv, d)
-    return q, k, v
-
-
-def _gqa_repeat(x, cfg: TransformerConfig):
-    """Repeat each K/V head n_heads / n_kv_heads times in place along the
-    heads axis (jnp.repeat semantics, i.e. repeat_interleave), written as
-    an expand + reshape."""
-    if cfg.n_kv_heads != cfg.n_heads:
-        b, t, kv, d = x.shape
-        rep = cfg.n_heads // kv
-        x = x[:, :, :, None, :].expand(b, t, kv, rep, d).reshape(b, t, kv * rep, d)
-    return x
-
-
-def _mlp(bp, x, cfg: TransformerConfig):
-    """Dense SwiGLU FFN with its residual."""
-    y = _rms_norm(x, bp["ln2"])
-    gated = F.silu(y @ bp["w_gate"]) * (y @ bp["w_up"])
-    return x + gated @ bp["w_down"]
+from .transformer import (
+    TransformerConfig,
+    TransformerLM,
+    _gqa_repeat,
+    _mlp,
+    _project_qkv,
+    _rms_norm,
+    _rope,
+)
 
 
 def _masked_attention(q, k_cache, v_cache, valid_len, cfg: TransformerConfig, pad=None):

@@ -1,24 +1,29 @@
 """The flagship decoder-only transformer (LLaMA-style) for the port: its
-config, its weights as an nn.Module, and the norm and rotary helpers the
-serving path shares.
+config, its weights as an nn.Module, the block helpers serving and
+training share, and the training step.
 
 Counterpart of cluster_anywhere_tpu/models/transformer.py.  Weights keep
 the JAX names and the JAX [in, out] layout (the code reads `y @ W`), and
-are fp32 masters as there.  The serving path uses a copy cast once to the
-activation dtype (`TransformerLM.compute_weights`), which equals the JAX
-package's cast at each use because the cast is deterministic.  Training,
-pipeline/sequence parallelism and MoE are later slices.
+are trainable fp32 masters as there.  `forward` casts each master to the
+activation dtype at its use, through autograd, as the JAX forward does;
+the serving path uses a copy cast once per weight update
+(`TransformerLM.compute_weights`), which equals that cast because the
+cast is deterministic.  Training runs on one device with AdamW
+(`make_train_step`); pipeline/sequence/expert parallelism, remat and MoE
+are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..ops.attention import attention
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -77,8 +82,7 @@ class TransformerBlock(nn.Module):
         for name, shape in _BLOCK_SHAPES.items():
             self.register_parameter(
                 name,
-                nn.Parameter(torch.empty(shape(cfg), dtype=cfg.param_dtype, device=device),
-                             requires_grad=False),
+                nn.Parameter(torch.empty(shape(cfg), dtype=cfg.param_dtype, device=device)),
             )
 
 
@@ -93,25 +97,29 @@ class TransformerLM(nn.Module):
         pd = cfg.param_dtype
 
         def param(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=pd, device=dev), requires_grad=False)
+            return nn.Parameter(torch.empty(shape, dtype=pd, device=dev))
 
         self.embed = param(cfg.vocab_size, cfg.d_model)
         self.blocks = nn.ModuleList(TransformerBlock(cfg, dev) for _ in range(cfg.n_layers))
         self.ln_f = param(cfg.d_model)
         self.lm_head = param(cfg.d_model, cfg.vocab_size)
         self._compute: Optional[Dict[str, Any]] = None
+        self._compute_key: Optional[Tuple[int, ...]] = None
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
     def compute_weights(self) -> Dict[str, Any]:
-        """The weights in the activation dtype, cast once on first use and
-        kept: {"embed", "blocks": [{name: tensor}], "ln_f", "lm_head"}.
-        Serving treats the weights as frozen; with fp32 activations these
-        are the masters themselves."""
-        if self._compute is None:
+        """The weights in the activation dtype, detached, for serving:
+        {"embed", "blocks": [{name: tensor}], "ln_f", "lm_head"}.  Cast once
+        and kept until a weight changes in place (an optimizer step, a
+        load): the cache is keyed on the parameters' version counters.  With
+        fp32 activations these are the masters themselves."""
+        key = tuple(p._version for p in self.parameters())
+        if self._compute is None or key != self._compute_key:
             dt = self.cfg.dtype
+            self._compute_key = key
             self._compute = {
                 "embed": self.embed.detach().to(dt),
                 "blocks": [
@@ -176,4 +184,131 @@ def _rope(q, k, positions, cfg: TransformerConfig):
         return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x.shape)
 
     return rot(q.float()).to(q.dtype), rot(k.float()).to(k.dtype)
+
+
+def _project_qkv(bp, y, cfg: TransformerConfig):
+    b, t, _ = y.shape
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (y @ bp["wq"]).reshape(b, t, h, d)
+    k = (y @ bp["wk"]).reshape(b, t, kv, d)
+    v = (y @ bp["wv"]).reshape(b, t, kv, d)
+    return q, k, v
+
+
+def _gqa_repeat(x, cfg: TransformerConfig):
+    """Repeat each K/V head n_heads / n_kv_heads times in place along the
+    heads axis (jnp.repeat semantics, i.e. repeat_interleave), written as
+    an expand + reshape."""
+    if cfg.n_kv_heads != cfg.n_heads:
+        b, t, kv, d = x.shape
+        rep = cfg.n_heads // kv
+        x = x[:, :, :, None, :].expand(b, t, kv, rep, d).reshape(b, t, kv * rep, d)
+    return x
+
+
+def _mlp(bp, x, cfg: TransformerConfig):
+    """Dense SwiGLU FFN with its residual."""
+    y = _rms_norm(x, bp["ln2"])
+    gated = F.silu(y @ bp["w_gate"]) * (y @ bp["w_up"])
+    return x + gated @ bp["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# training forward, loss and step
+# ---------------------------------------------------------------------------
+
+
+def _block_forward(bp, x, cfg: TransformerConfig):
+    """One block over the whole sequence (causal, no pad, positions from 0).
+    bp: {name: weight in the activation dtype}; x: [B, T, E]."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(bp, _rms_norm(x, bp["ln1"]), cfg)
+    q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
+    attn = attention(q, _gqa_repeat(k, cfg), _gqa_repeat(v, cfg), causal=True)
+    x = x + attn.reshape(b, t, -1) @ bp["wo"]
+    return _mlp(bp, x, cfg)
+
+
+def forward(model: TransformerLM, ids):
+    """ids: [B, T] -> logits [B, T, V] in the activation dtype.  The dense
+    single-device path of the JAX forward: each fp32 master is cast to
+    cfg.dtype at its use, through autograd, so gradients reach the masters;
+    attention is the dispatcher (the flash kernels on the card)."""
+    cfg = model.cfg
+    dt = cfg.dtype
+    x = model.embed.to(dt)[ids]
+    for blk in model.blocks:
+        x = _block_forward({n: getattr(blk, n).to(dt) for n in BLOCK_KEYS}, x, cfg)
+    x = _rms_norm(x, model.ln_f)
+    return x @ model.lm_head.to(dt)
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Mean token negative log-likelihood in fp32; with a mask, the mean
+    over the unmasked tokens (at least one in the denominator)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def make_loss_fn(cfg: TransformerConfig):
+    """loss_fn(model, batch) with batch {"ids": [B, T + 1]}: next-token
+    cross-entropy of forward(model, ids[:, :-1]) against ids[:, 1:]."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE training (n_experts > 0) is not ported yet")
+
+    def loss_fn(model: TransformerLM, batch):
+        ids = torch.as_tensor(batch["ids"], device=model.device).long()
+        return cross_entropy_loss(forward(model, ids[:, :-1]), ids[:, 1:])
+
+    return loss_fn
+
+
+def make_train_step(
+    cfg: TransformerConfig,
+    mesh=None,
+    optimizer: Optional[Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]] = None,
+    learning_rate: float = 3e-4,
+    device=None,
+):
+    """Returns (train_step, init_state), as the JAX package does.
+
+    train_step(model, opt, batch) -> (model, opt, loss): one step of
+    `optimizer` on the loss of make_loss_fn, the weights updated in place;
+    loss is the detached fp32 scalar before the step.
+    init_state(key=0) -> (model, opt): a TransformerLM from init_params with
+    seed `key` on `device` (None means the card), or `key` itself when it
+    is a TransformerLM (e.g. weights converted from the JAX package), and
+    the optimizer built over its parameters.
+
+    optimizer: a function of the parameters returning a torch optimizer.
+    The default is optax.adamw(learning_rate, weight_decay=0.01) written as
+    torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01):
+    optax adds wd * p after the Adam scaling and torch decays p before it,
+    which is the same update.  mesh: only None (one device) is ported."""
+    if mesh is not None:
+        raise NotImplementedError("sharded training (a mesh) is not ported yet: pass mesh=None")
+    if optimizer is None:
+        def optimizer(params):
+            return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=0.01)
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(model: TransformerLM, opt: torch.optim.Optimizer, batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return model, opt, loss.detach()
+
+    def init_state(key: Union[int, torch.Generator, TransformerLM] = 0):
+        model = key if isinstance(key, TransformerLM) else init_params(cfg, key, device=device)
+        return model, optimizer(model.parameters())
+
+    return train_step, init_state
 

@@ -41,13 +41,10 @@
 //         row, each holding every fourth element of d_head.
 // D (d_head) is a template argument: 16, 32, 64 or 128.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per shared-memory tile
 
@@ -68,87 +65,17 @@ struct Params {
 };
 
 __device__ __forceinline__ bool key_ok(const Params& p, int row, int key, int pad) {
-  return key < p.Tkv && key >= pad && (!p.causal || row >= key);
+  return mask_ok(row, key, p.Tkv, pad, p.causal);
 }
 
 // ---------------------------------------------------------------- bf16 path
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) ~= hi + lo with hi and lo bf16 pairs: 16 significant bits, so P.V
-// through two bf16 products keeps P to ~1e-5 relative, as the reference's
-// fp32 P.V does, instead of bf16's ~4e-3.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16-byte asynchronous copy, global -> shared; `in` false fills zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices from shared memory, each transposed on the way:
-// lanes 8j..8j+7 give the addresses of matrix j's eight rows.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-// Rows [r0, r0 + 64) of a [rows, D] operand (row stride `st`) into a
-// [64][D + 8] shared tile; rows past n_rows become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long st, int r0, int n_rows) {
-  constexpr int CH = D / 8, S = D + 8;
-  for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = r0 + r < n_rows;
-    cp_async16(dst + r * S + c, in ? src + (r0 + r) * st + c : src, in);
-  }
-}
 
 template <int D>
 constexpr int bf16_smem_bytes() {
   return 4 * BK * (D + 8) * 2;
 }
 
-// Fragment layout of m16n8k16 (lane = 4 * g + t): A holds rows g and g + 8,
-// columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds k rows 2t, 2t + 1 and
-// 2t + 8, 2t + 9 of column g; C holds rows g and g + 8, columns 2t, 2t + 1.
+// Fragment layouts of m16n8k16: flash_common.cuh, mma_bf16.
 //
 // K/V tiles are double-buffered: the copy of tile j + 1 (cp.async) is in
 // flight while the block computes on tile j.
@@ -178,10 +105,10 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
   const int kv_end = p.causal ? min(p.Tkv, q0 + BQ) : p.Tkv;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
-  load_tile_async<D>(Qs, qg, p.q_st, q0, p.T);
+  load_tile_async<BK, D>(Qs, qg, p.q_st, q0, p.T);
   if (n_tiles > 0) {
-    load_tile_async<D>(k_buf(0), kg, p.k_st, 0, p.Tkv);
-    load_tile_async<D>(v_buf(0), vg, p.v_st, 0, p.Tkv);
+    load_tile_async<BK, D>(k_buf(0), kg, p.k_st, 0, p.Tkv);
+    load_tile_async<BK, D>(v_buf(0), vg, p.v_st, 0, p.Tkv);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -209,8 +136,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
     const __nv_bfloat16* Ks = k_buf(j);
     const __nv_bfloat16* Vs = v_buf(j);
     if (j + 1 < n_tiles) {
-      load_tile_async<D>(k_buf(j + 1), kg, p.k_st, k0 + BK, p.Tkv);
-      load_tile_async<D>(v_buf(j + 1), vg, p.v_st, k0 + BK, p.Tkv);
+      load_tile_async<BK, D>(k_buf(j + 1), kg, p.k_st, k0 + BK, p.Tkv);
+      load_tile_async<BK, D>(v_buf(j + 1), vg, p.v_st, k0 + BK, p.Tkv);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j has landed; tile j + 1 may still be in flight
@@ -394,14 +321,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int smem, const Params& p, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(p.B * p.H, (p.T + BQ - 1) / BQ);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_kernel(kernel, dim3(p.B * p.H, (p.T + BQ - 1) / BQ), threads, smem, p, stream);
 }
 
 template <int D>
