@@ -6,14 +6,20 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
   1. build the flash-attention forward (ops/csrc/flash_fwd.cu) and backward
      (ops/csrc/flash_bwd.cu: the dQ and dK/dV kernels), one nvcc each, both
-     started together; hold each kernel to its plain PyTorch version on the
-     card (causal and not, with and without pad, T != T_kv, ragged T, fp32
-     and bf16, an LSE cotangent, the flagship prefill and training shapes),
-     and two backward calls on the same inputs to the same bits;
+     started together; show with cuobjdump that the backward's bf16 Hopper
+     instances run wgmma (HGMMA) on tiles loaded by TMA (UTMALDG); hold
+     each kernel to its plain PyTorch version on the card (causal and not,
+     with and without pad, a pad across a 128-key block, T != T_kv, ragged
+     T, fp32 and bf16, an LSE cotangent, the flagship prefill and training
+     shapes), and two backward calls on the same inputs to the same bits;
   2. time the kernels, their plain versions and torch's
      scaled_dot_product_attention forward and backward (the yardsticks; the
      port never calls them) at the flagship prefill and training shapes,
-     beside the card's bound for the same work;
+     beside the card's bound for the same work; device time, with the
+     host's launch hidden behind a spin kernel (and, for comparison, with
+     the launch in the time); the backward kernels and SDPA's backward
+     in one loop, so that their ratio comes from the same clocks, which
+     nvidia-smi samples before and after;
   3. batch generation at the flagship width: 8 prompts of 128-512 tokens,
      32 greedy tokens, against the same call with the plain attention;
   4. a ContinuousLLMServer at the flagship width answering 8 concurrent
@@ -109,6 +115,39 @@ def phase_build():
         for line in (lib.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
                 log("[build]", line.strip())
+    check_hopper_sass(_build, libs["flash_bwd"][0])
+
+
+def sass_functions(sass):
+    """{mangled kernel name: its SASS lines} from `cuobjdump -sass`."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
+def check_hopper_sass(_build, lib):
+    """The backward's bf16 instances at D 64 and 128 issue wgmma (HGMMA) on
+    tiles that TMA loads (UTMALDG), and no mma.sync instance is left at
+    those D."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    funcs = sass_functions(out.stdout)
+    for kernel in ("bwd_dq_bf16_wgmma", "bwd_dkv_bf16_wgmma"):
+        for d in (64, 128):
+            body = next((v for k, v in funcs.items() if kernel in k and f"ILi{d}E" in k), None)
+            check(body is not None, f"{kernel}<{d}> is not in {lib.name}")
+            n_hgmma = sum("HGMMA" in line for line in body)
+            n_tma = sum("UTMALDG" in line for line in body)
+            log(f"[sass] {kernel}<{d}>: {n_hgmma} HGMMA, {n_tma} UTMALDG instructions")
+            check(n_hgmma > 0 and n_tma > 0, f"{kernel}<{d}> has no wgmma or no TMA load in its SASS")
+    stale = [k for k in funcs if "_bf16_mma" in k and ("ILi64E" in k or "ILi128E" in k)]
+    check(not stale, f"mma.sync bf16 backward instances left at D 64/128: {stale}")
 
 
 def phase_kernel_check(torch, attn, gen):
@@ -156,27 +195,51 @@ def phase_kernel_check(torch, attn, gen):
 # ----------------------------------------------------------------- phase 2
 
 
-def time_cold(torch, fn, reps=31, warmup_s=1.0):
+SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock: longer than any timed call takes to launch
+
+
+def time_cold(torch, fn, reps=31, warmup_s=1.0, hide_launch=True):
     """Median device ms of fn() over `reps` calls, L2 flushed before each
     (the inputs fit in the 50 MB L2; a prefill finds them in device
     memory).  A second of the same loop first brings the card's clocks up:
     the first cold launches after idle time run up to 1.5x slower."""
+    return time_cold_in_turn(torch, {"fn": fn}, reps, warmup_s, hide_launch)["fn"]
+
+
+def time_cold_in_turn(torch, fns, reps=31, warmup_s=1.0, hide_launch=True):
+    """time_cold of each function of `fns` (name -> fn), taken in turn in
+    every repetition, so that each median comes from the same clocks.  With
+    hide_launch, a spin kernel runs between the flush and the timed call,
+    so that the host has enqueued the call before the card reaches it and
+    the events time the card's work alone; without it, the time includes
+    whatever part of the host's launch outlasts the flush."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     t_end = time.perf_counter() + warmup_s
     while time.perf_counter() < t_end:
-        flush.zero_()
-        fn()
+        for fn in fns.values():
+            flush.zero_()
+            fn()
         torch.cuda.synchronize()
-    times = []
+    times = {name: [] for name in fns}
     for _ in range(reps):
-        flush.zero_()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+        for name, fn in fns.items():
+            flush.zero_()
+            if hide_launch:
+                torch.cuda._sleep(SPIN_CYCLES)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times[name].append(e0.elapsed_time(e1))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def gpu_clocks():
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() if smi.returncode == 0 else f"not read ({smi.stderr.strip()})"
 
 
 def phase_kernel_timing(torch, attn, gen):
@@ -185,6 +248,8 @@ def phase_kernel_timing(torch, attn, gen):
     q, k, v, pad = flagship_prefill_inputs(torch, gen)
     h, d = q.shape[2], q.shape[3]
     ms = time_cold(torch, lambda: attn.flash_attention(q, k, v, causal=True, pad=pad))
+    launch_ms = time_cold(torch, lambda: attn.flash_attention(q, k, v, causal=True, pad=pad),
+                          hide_launch=False)
     plain_ms = time_cold(torch, lambda: attn._flash_attention_plain(
         q, k, v, causal=True, scale=d ** -0.5, pad=pad), reps=7)
     keys = torch.arange(T, device="cuda")
@@ -204,7 +269,8 @@ def phase_kernel_timing(torch, attn, gen):
     flops = 4 * d * h * float(np.sum(live * (live + 1) / 2))
     t_bytes, t_flops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
     bound_ms, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
-    log(f"[timing] flash_fwd at B8 T512 H8 D128 bf16 causal+pad (L2 flushed, median): kernel {ms:.4f} ms, "
+    log(f"[timing] flash_fwd at B8 T512 H8 D128 bf16 causal+pad (L2 flushed, median, device time): "
+        f"kernel {ms:.4f} ms (with the host's launch: {launch_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -247,15 +313,21 @@ def bwd_row_errs(got, want):
 
 def phase_bwd_check(torch, attn, gen):
     cases = [
-        # (B, T, T_kv, H, D, dtype, causal, padded, LSE cotangent)
-        (2, 200, 200, 3, 64, "float32", True, True, False),
-        (2, 200, 200, 3, 128, "float32", False, False, True),
-        (2, 64, 130, 2, 32, "float32", True, True, False),
-        (2, 130, 64, 2, 16, "float32", False, True, True),
-        (2, 200, 200, 3, 128, "bfloat16", True, True, False),
-        (2, 200, 200, 3, 64, "bfloat16", False, False, True),
-        (2, 77, 150, 4, 32, "bfloat16", True, True, True),
-        (2, 150, 77, 4, 16, "bfloat16", False, True, False),
+        # (B, T, T_kv, H, D, dtype, causal, pad of batch row 0, LSE cotangent)
+        (2, 200, 200, 3, 64, "float32", True, 66, False),
+        (2, 200, 200, 3, 128, "float32", False, None, True),
+        (2, 64, 130, 2, 32, "float32", True, 21, False),
+        (2, 130, 64, 2, 16, "float32", False, 21, True),
+        (2, 200, 200, 3, 128, "bfloat16", True, 66, False),
+        (2, 200, 200, 3, 64, "bfloat16", False, None, True),
+        (2, 77, 150, 4, 32, "bfloat16", True, 25, True),
+        (2, 150, 77, 4, 16, "bfloat16", False, 25, False),
+        # across the Hopper kernels' tiles: a pad across the first 128-key
+        # block, ragged 520-row and 520-key edges
+        (2, 333, 333, 3, 128, "bfloat16", True, 150, False),
+        (2, 333, 333, 3, 64, "float32", True, 150, True),
+        (2, 96, 520, 3, 64, "bfloat16", False, None, True),
+        (2, 520, 96, 3, 128, "bfloat16", True, None, False),
     ]
 
     def compare(name, q, k, v, do, causal, pad, dtype, with_dlse):
@@ -276,14 +348,14 @@ def phase_bwd_check(torch, attn, gen):
         check(ok, f"flash backward disagrees with its plain version on {name} {dtype}")
         return got, abs_errs
 
-    for b, t, t_kv, h, d, dtype, causal, padded, with_dlse in cases:
+    for b, t, t_kv, h, d, dtype, causal, pad0, with_dlse in cases:
         dt = getattr(torch, dtype)
         q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, t_kv, h, d), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, t_kv, h, d), generator=gen, device="cuda").to(dt)
         do = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dt)
-        pad = torch.tensor([min(t, t_kv) // 3, 0], device="cuda") if padded else None
-        compare(f"B{b} T{t} Tkv{t_kv} H{h} D{d} causal={causal} pad={padded}",
+        pad = None if pad0 is None else torch.tensor([pad0, 0], device="cuda")
+        compare(f"B{b} T{t} Tkv{t_kv} H{h} D{d} causal={causal} pad={pad0}",
                 q, k, v, do, causal, pad, dtype, with_dlse)
     q, k, v, do = flagship_train_attention_inputs(torch, gen)
     got, errs = compare("flagship training B8 T1024 H8 D128 causal", q, k, v, do, True, None,
@@ -300,7 +372,8 @@ def phase_bwd_check(torch, attn, gen):
 def phase_bwd_timing(torch, attn, gen):
     """The backward at the flagship training shape, L2 flushed before each
     call: each kernel alone (delta given), the whole backward (delta
-    reduction + both kernels), the plain version, and SDPA's backward."""
+    reduction + both kernels) and SDPA's backward, in turn in one loop;
+    then the plain version."""
     import torch.nn.functional as F
 
     q, k, v, do = flagship_train_attention_inputs(torch, gen)
@@ -309,15 +382,18 @@ def phase_bwd_timing(torch, attn, gen):
     o, lse = attn.flash_attention(q, k, v, causal=True, return_lse=True)
     delta = attn._bwd_delta(o, do)
     kw = dict(causal=True, scale=scale)
-    dq_ms = time_cold(torch, lambda: attn.flash_bwd_dq(q, k, v, do, lse, delta, **kw))
-    dkv_ms = time_cold(torch, lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    total_ms = time_cold(torch, lambda: attn.flash_attention_bwd(q, k, v, o, lse, do, **kw))
-    plain_ms = time_cold(torch, lambda: attn._flash_bwd_plain(q, k, v, o, lse, do, **kw), reps=7)
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     doh = do.transpose(1, 2)
-    library_ms = time_cold(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                              retain_graph=True))
+    fns = {
+        "dq": lambda: attn.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+        "dkv": lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+        "whole": lambda: attn.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+        "sdpa": lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+    }
+    ms = time_cold_in_turn(torch, fns)
+    launch = time_cold_in_turn(torch, fns, hide_launch=False)
+    plain_ms = time_cold(torch, lambda: attn._flash_bwd_plain(q, k, v, o, lse, do, **kw), reps=7)
     # bound: each input read once and each output written once, over HBM;
     # the products over the causal (query, key) pairs, over the bf16
     # tensor-core peak.  dQ needs S = Q K^T, dP = dO V^T and dS K; dK/dV
@@ -326,24 +402,37 @@ def phase_bwd_timing(torch, attn, gen):
     row = q.numel() * q.element_size()  # one [B, T, H, D] bf16 tensor
     stats = b * h * t * 4  # one [B, H, T] fp32 tensor
 
+    def flops(n_products):
+        return n_products * 2 * d * pairs
+
     def bound(n_products, n_in, n_stats, n_out):
-        t_flops = n_products * 2 * d * pairs / BF16_FLOPS * 1e3
+        t_flops = flops(n_products) / BF16_FLOPS * 1e3
         t_bytes = ((n_in + n_out) * row + n_stats * stats) / HBM_BYTES_S * 1e3
         return max(t_flops, t_bytes), "bytes" if t_bytes >= t_flops else "operations", t_bytes
+
+    def tflops(n_products, t_ms):
+        return flops(n_products) / t_ms / 1e9
 
     dq_b = bound(3, 4, 2, 1)      # q, k, v, dO, lse, delta -> dQ
     dkv_b = bound(4, 4, 2, 2)     # q, k, v, dO, lse, delta -> dK, dV
     all_b = bound(5, 5, 1, 3)     # q, k, v, O, dO, lse -> dQ, dK, dV
-    log(f"[timing] flash backward at B8 T1024 H8 D128 bf16 causal (L2 flushed, median): "
-        f"dQ kernel {dq_ms:.4f} ms (bound {dq_b[0]:.4f} by {dq_b[1]}), dK/dV kernel {dkv_ms:.4f} ms "
-        f"(bound {dkv_b[0]:.4f} by {dkv_b[1]}), sum {dq_ms + dkv_ms:.4f} ms; whole backward with "
-        f"the delta reduction {total_ms:.4f} ms against a bound of {all_b[0]:.4f} ms by {all_b[1]} "
-        f"({5 * 2 * d * pairs / 1e9:.2f} GFLOP; {all_b[2]:.4f} ms for "
-        f"{(8 * row + stats) / 1e6:.1f} MB); plain {plain_ms:.4f} ms; sdpa backward "
-        f"{library_ms:.4f} ms")
-    common = dict(plain_ms=plain_ms, library_ms=library_ms)
-    return (dict(ms=dq_ms, bound_ms=dq_b[0], bound_by=dq_b[1], **common),
-            dict(ms=dkv_ms, bound_ms=dkv_b[0], bound_by=dkv_b[1], **common))
+    log(f"[timing] flash backward at B8 T1024 H8 D128 bf16 causal (L2 flushed, median of 31, "
+        f"device time, kernels and sdpa in turn in one loop): "
+        f"dQ kernel {ms['dq']:.4f} ms, {tflops(3, ms['dq']):.1f} TFLOP/s of its 3 products "
+        f"(bound {dq_b[0]:.4f} by {dq_b[1]}); dK/dV kernel {ms['dkv']:.4f} ms, "
+        f"{tflops(4, ms['dkv']):.1f} TFLOP/s of its 4 products (bound {dkv_b[0]:.4f} by "
+        f"{dkv_b[1]}); sum {ms['dq'] + ms['dkv']:.4f} ms; whole backward with the delta reduction "
+        f"{ms['whole']:.4f} ms, {tflops(5, ms['whole']):.1f} TFLOP/s of the 5 products, against a "
+        f"bound of {all_b[0]:.4f} ms by {all_b[1]} ({flops(5) / 1e9:.2f} GFLOP; {all_b[2]:.4f} ms "
+        f"for {(8 * row + stats) / 1e6:.1f} MB); sdpa backward {ms['sdpa']:.4f} ms; whole / sdpa "
+        f"{ms['whole'] / ms['sdpa']:.3f}x, kernels / sdpa {(ms['dq'] + ms['dkv']) / ms['sdpa']:.3f}x; "
+        f"plain {plain_ms:.4f} ms")
+    log(f"[timing] the same loop with the host's launch in the time: dQ {launch['dq']:.4f} "
+        f"ms, dK/dV {launch['dkv']:.4f} ms, whole backward {launch['whole']:.4f} ms, sdpa backward "
+        f"{launch['sdpa']:.4f} ms; whole / sdpa {launch['whole'] / launch['sdpa']:.3f}x")
+    common = dict(plain_ms=plain_ms, library_ms=ms["sdpa"])
+    return (dict(ms=ms["dq"], bound_ms=dq_b[0], bound_by=dq_b[1], **common),
+            dict(ms=ms["dkv"], bound_ms=dkv_b[0], bound_by=dkv_b[1], **common))
 
 
 # ----------------------------------------------------------------- phases 3-4
@@ -691,8 +780,10 @@ def main() -> int:
     phase_build()
     fwd_err = phase_kernel_check(torch, attn, gen)
     dq_err, dkv_err = phase_bwd_check(torch, attn, gen)
+    log(f"[clocks] clocks.sm, clocks.max.sm before the timing phases: {gpu_clocks()}")
     fwd_timing = phase_kernel_timing(torch, attn, gen)
     dq_timing, dkv_timing = phase_bwd_timing(torch, attn, gen)
+    log(f"[clocks] clocks.sm, clocks.max.sm after the timing phases: {gpu_clocks()}")
     cfg, model, ids_t, lens_t, prefill_ms = phase_generate(torch)
 
     # the main path starts here

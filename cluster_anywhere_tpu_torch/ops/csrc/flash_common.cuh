@@ -1,7 +1,7 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the mask predicate of the JAX reference, bf16 packing, mma.sync m16n8k16,
-// ldmatrix and cp.async.  Header-only; every kernel file includes it into
-// its own anonymous namespace scope.
+// the mask predicate of the JAX reference, a fast 2^x, bf16 packing,
+// mma.sync m16n8k16, ldmatrix and cp.async.  Header-only; every kernel file
+// includes it into its own anonymous namespace scope.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +19,14 @@ constexpr float NEG_INF = -1e30f;
 // row has LSE = -1e30, where a masked score would give exp(s - lse) = 1.
 __device__ __forceinline__ bool mask_ok(int row, int key, int tkv, int pad, int causal) {
   return key < tkv && key >= pad && (!causal || row >= key);
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: about 2^-22 relative,
+// denormal results flushed to zero), where exp2f adds range handling.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
@@ -115,16 +123,16 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
 }
 
 // Raises the kernel's dynamic shared-memory limit where it needs more than
-// the default 48 KB, launches it, and returns cudaGetLastError().
-template <typename Kernel, typename Params>
-cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
-                          cudaStream_t stream) {
+// the default 48 KB, launches it with `args`, and returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t stream,
+                          const Args&... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -321,7 +321,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(const Params p) {
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int smem, const Params& p, cudaStream_t stream) {
-  return launch_kernel(kernel, dim3(p.B * p.H, (p.T + BQ - 1) / BQ), threads, smem, p, stream);
+  return launch_kernel(kernel, dim3(p.B * p.H, (p.T + BQ - 1) / BQ), threads, smem, stream, p);
 }
 
 template <int D>

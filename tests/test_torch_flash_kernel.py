@@ -159,6 +159,43 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, d, t, t_kv, causal, 
     assert max(errs) <= BWD_TOL[dt], errs
 
 
+# Shapes that cross the Hopper kernels' tiles (dK/dV: 128-key blocks and
+# 64-row query tiles; dQ: 128-row blocks and 64-key tiles): (B, T, T_kv, H,
+# D, causal, pad of batch row 0).  A pad of 150 crosses the first 128-key
+# block; T_kv 520 and T 520 leave ragged last tiles; the last is the
+# flagship training step's attention.
+HOPPER_CASES = [
+    (b, t, t_kv, h, d, causal, pad0)
+    for b, t, t_kv, h, causal, pad0 in [(2, 333, 333, 3, True, 150), (2, 96, 520, 3, False, None),
+                                        (2, 520, 96, 3, True, None)]
+    for d in (64, 128)
+] + [(8, 1024, 1024, 8, 128, True, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,t_kv,h,d,causal,pad0", HOPPER_CASES)
+def test_flash_bwd_kernels_match_plain_on_hopper_tiles(cuda, dtype, b, t, t_kv, h, d, causal, pad0):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a, device=cuda).to(dt) for a in _qkv(t, t_kv, seed=d + t, d=d, b=b, h=h))
+    pad = None if pad0 is None else torch.tensor([pad0] + [0] * (b - 1), device=cuda)
+    rng = np.random.default_rng(d + t + 1)
+    do = torch.tensor(rng.standard_normal(q.shape).astype(np.float32), device=cuda).to(dt)
+    scale = d ** -0.5
+    o, lse = tattn.flash_attention(q, k, v, causal=causal, pad=pad, return_lse=True)
+    dlse = torch.randn(lse.shape, device=cuda)
+    delta = tattn._bwd_delta(o, do, dlse)
+    before = (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches)
+    dq = tattn.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale, pad=pad)
+    dk, dv = tattn.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale, pad=pad)
+    torch.cuda.synchronize()
+    assert (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == dt
+    want = tattn._flash_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale, pad=pad, dlse=dlse)
+    errs = _bwd_row_errs((dq, dk, dv), want)
+    assert max(errs) <= BWD_TOL[dt], errs
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_autograd_on_card(cuda, dtype):
@@ -261,11 +298,20 @@ def test_bf16_bwd_tolerance_rejects_late_tile_faults(t, t_kv, causal, padded, fa
     the largest element reads the unwritten dV tile at 0.024, about 1.2x
     the limit."""
     (q, k, v, pad, do, o, lse, scale), want = _plain_bwd_case(t, t_kv, causal, padded, 128)
-    rows, c0 = slice(t - 32, t), min(t, t_kv) - 64
-    keys = slice(c0, c0 + 32)
+    bad = _plant_tile_fault(q, k, v, pad, do, o, lse, scale, want, fault, n_rows=32, n_keys=32)
+    assert min(_bwd_row_errs(bad, want)) > 5 * BWD_TOL[torch.bfloat16]
+
+
+def _plant_tile_fault(q, k, v, pad, do, o, lse, scale, want, fault, n_rows, n_keys):
+    """(dQ, dK, dV) of `want` with one tile lost: the last n_rows query rows
+    against the n_keys keys that end n_rows before them, either skipped
+    (their pairs' terms removed) or left unwritten (zeros)."""
+    t, t_kv = q.shape[1], k.shape[1]
+    rows, c0 = slice(t - n_rows, t), min(t, t_kv) - n_rows - n_keys
+    keys = slice(c0, c0 + n_keys)
     bad = [w.float().clone() for w in want]
     if fault == "skipped_tile":
-        # the pairs (rows, keys) are all live under causal: c0 + 32 <= t - 32
+        # the pairs (rows, keys) are all live under causal: c0 + n_keys <= t - n_rows
         sub_pad = None if pad is None else (pad - c0).clamp(min=0)
         part = tattn._flash_bwd_plain(q[:, rows], k[:, keys], v[:, keys], o[:, rows],
                                       lse[:, :, rows], do[:, rows], causal=False, scale=scale,
@@ -277,4 +323,18 @@ def test_bf16_bwd_tolerance_rejects_late_tile_faults(t, t_kv, causal, padded, fa
         bad[0][:, rows] = 0
         bad[1][:, keys] = 0
         bad[2][:, keys] = 0
+    return bad
+
+
+@pytest.mark.parametrize("fault", ["skipped_tile", "unwritten_tile"])
+@pytest.mark.parametrize("t,t_kv,causal,padded", CASES[:2] + [FLAGSHIP_T])
+def test_bf16_bwd_tolerance_rejects_lost_hopper_tiles(t, t_kv, causal, padded, fault):
+    """The same faults at the Hopper kernels' tile shapes: a dK/dV block
+    that skips one 64-row query tile against its 128 keys (and a dQ block
+    that skips those 128 keys for the 64 rows of one consumer warpgroup),
+    or those 64 rows and 128 keys left unwritten.  The row error reads
+    each as O(1), far past the bf16 tolerance.  The shapes are those where
+    64 late rows see 128 earlier keys in full under causal."""
+    (q, k, v, pad, do, o, lse, scale), want = _plain_bwd_case(t, t_kv, causal, padded, 128)
+    bad = _plant_tile_fault(q, k, v, pad, do, o, lse, scale, want, fault, n_rows=64, n_keys=128)
     assert min(_bwd_row_errs(bad, want)) > 5 * BWD_TOL[torch.bfloat16]
