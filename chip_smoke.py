@@ -6,20 +6,22 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
   1. build the flash-attention forward (ops/csrc/flash_fwd.cu) and backward
      (ops/csrc/flash_bwd.cu: the dQ and dK/dV kernels), one nvcc each, both
-     started together; show with cuobjdump that the backward's bf16 Hopper
-     instances run wgmma (HGMMA) on tiles loaded by TMA (UTMALDG); hold
-     each kernel to its plain PyTorch version on the card (causal and not,
-     with and without pad, a pad across a 128-key block, T != T_kv, ragged
-     T, fp32 and bf16, an LSE cotangent, the flagship prefill and training
-     shapes), and two backward calls on the same inputs to the same bits;
+     started together; show with cuobjdump that the bf16 Hopper instances
+     of all three kernels run wgmma (HGMMA) on tiles loaded by TMA
+     (UTMALDG); hold each kernel to its plain PyTorch version on the card
+     (causal and not, with and without pad, a pad across a key tile or
+     over whole 128-row query blocks, T != T_kv, ragged T, fp32 and bf16,
+     an LSE cotangent, the flagship prefill and training shapes; O and the
+     gradients also row by row), and two calls of each kernel on the same
+     inputs to the same bits;
   2. time the kernels, their plain versions and torch's
      scaled_dot_product_attention forward and backward (the yardsticks; the
      port never calls them) at the flagship prefill and training shapes,
      beside the card's bound for the same work; device time, with the
      host's launch hidden behind a spin kernel (and, for comparison, with
-     the launch in the time); the backward kernels and SDPA's backward
-     in one loop, so that their ratio comes from the same clocks, which
-     nvidia-smi samples before and after;
+     the launch in the time); each kernel and its SDPA call in one loop, so
+     that their ratio comes from the same clocks, which nvidia-smi samples
+     before and after;
   3. batch generation at the flagship width: 8 prompts of 128-512 tokens,
      32 greedy tokens, against the same call with the plain attention;
   4. a ContinuousLLMServer at the flagship width answering 8 concurrent
@@ -115,7 +117,7 @@ def phase_build():
         for line in (lib.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
                 log("[build]", line.strip())
-    check_hopper_sass(_build, libs["flash_bwd"][0])
+    check_hopper_sass(_build, {name: lib for name, (lib, _) in libs.items()})
 
 
 def sass_functions(sass):
@@ -130,66 +132,134 @@ def sass_functions(sass):
     return funcs
 
 
-def check_hopper_sass(_build, lib):
-    """The backward's bf16 instances at D 64 and 128 issue wgmma (HGMMA) on
-    tiles that TMA loads (UTMALDG), and no mma.sync instance is left at
-    those D."""
+# the bf16 Hopper instances of each library, at D 64 and 128
+HOPPER_KERNELS = {"flash_fwd": ("flash_fwd_bf16_wgmma",),
+                  "flash_bwd": ("bwd_dq_bf16_wgmma", "bwd_dkv_bf16_wgmma")}
+
+
+def check_hopper_sass(_build, libs):
+    """The bf16 instances at D 64 and 128 of the forward and both backward
+    kernels issue wgmma (HGMMA) on tiles that TMA loads (UTMALDG), and no
+    mma.sync instance is left at those D in either library."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    funcs = sass_functions(out.stdout)
-    for kernel in ("bwd_dq_bf16_wgmma", "bwd_dkv_bf16_wgmma"):
-        for d in (64, 128):
-            body = next((v for k, v in funcs.items() if kernel in k and f"ILi{d}E" in k), None)
-            check(body is not None, f"{kernel}<{d}> is not in {lib.name}")
-            n_hgmma = sum("HGMMA" in line for line in body)
-            n_tma = sum("UTMALDG" in line for line in body)
-            log(f"[sass] {kernel}<{d}>: {n_hgmma} HGMMA, {n_tma} UTMALDG instructions")
-            check(n_hgmma > 0 and n_tma > 0, f"{kernel}<{d}> has no wgmma or no TMA load in its SASS")
-    stale = [k for k in funcs if "_bf16_mma" in k and ("ILi64E" in k or "ILi128E" in k)]
-    check(not stale, f"mma.sync bf16 backward instances left at D 64/128: {stale}")
+    for name, kernels in HOPPER_KERNELS.items():
+        lib = libs[name]
+        out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=120)
+        check(out.returncode == 0, f"cuobjdump failed on {lib.name}: {out.stderr[-2000:]}")
+        funcs = sass_functions(out.stdout)
+        for kernel in kernels:
+            for d in (64, 128):
+                body = next((v for k, v in funcs.items() if kernel in k and f"ILi{d}E" in k), None)
+                check(body is not None, f"{kernel}<{d}> is not in {lib.name}")
+                n_hgmma = sum("HGMMA" in line for line in body)
+                n_tma = sum("UTMALDG" in line for line in body)
+                # a wait after every wgmma means ptxas serialised the products
+                n_wait = sum("WARPGROUP.DEPBAR" in line for line in body)
+                log(f"[sass] {kernel}<{d}>: {n_hgmma} HGMMA, {n_tma} UTMALDG, {n_wait} "
+                    f"WARPGROUP.DEPBAR instructions")
+                check(n_hgmma > 0 and n_tma > 0,
+                      f"{kernel}<{d}> has no wgmma or no TMA load in its SASS")
+        stale = [k for k in funcs if "_bf16_mma" in k and ("ILi64E" in k or "ILi128E" in k)]
+        check(not stale, f"mma.sync bf16 instances left at D 64/128 in {lib.name}: {stale}")
+
+
+# The kernels against their plain versions, row by row: each row of O, and
+# each gradient row of the backward (one query or key of one head, D values),
+# is held to its own norm,
+#   ||got_r - want_r|| / max(||want_r||, 0.1 * RMS over rows of ||want_r||).
+# Under causal the gradient rows differ in size by 10-100x (the first keys
+# are seen by every query, the last by a few), so a limit relative to the
+# largest element would let a fault on the small late rows pass; relative to
+# each row's own norm such a fault reads as O(1).  Rows below the floor are
+# held in absolute terms: there a sound kernel's error follows the size of
+# the terms summed, not of their sum (dQ of a row that sees one key is zero
+# by cancellation, and an fp32 kernel leaves ~1e-6 of it; pad rows are
+# zero).  Limits: fp32 1e-4 (full fp32 in both; summation order differs);
+# bf16 2e-2 (the outputs are rounded to bf16, 2^-8 relative, and the
+# backward rounds P and dS to bf16 before their products, as FA2 does: a
+# sound backward reads about 5e-3 at the flagship shape, a skipped or
+# unwritten tile ~1).
+ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def row_errs(got, want):
+    """The row error above, for each pair of (got, want) tensors."""
+    errs = []
+    for g, w in zip(got, want):
+        diff, norm = (g.float() - w.float()).norm(dim=-1), w.float().norm(dim=-1)
+        floor = 0.1 * norm.square().mean().sqrt()
+        errs.append((diff / norm.clamp(min=floor.item())).max().item())
+    return errs
 
 
 def phase_kernel_check(torch, attn, gen):
     cases = [
-        # (B, T, T_kv, H, D, dtype, causal, padded)
-        (2, 200, 200, 3, 64, "float32", True, True),
-        (2, 200, 200, 3, 128, "float32", False, False),
-        (2, 64, 130, 2, 32, "float32", True, True),
-        (2, 130, 64, 2, 16, "float32", False, True),
-        (2, 200, 200, 3, 128, "bfloat16", True, True),
-        (2, 200, 200, 3, 64, "bfloat16", False, False),
-        (2, 77, 150, 4, 32, "bfloat16", True, True),
-        (2, 150, 77, 4, 16, "bfloat16", False, True),
-        (2, 200, 200, 3, 128, "bfloat16", True, False),
+        # (B, T, T_kv, H, D, dtype, causal, pad of batch row 0)
+        (2, 200, 200, 3, 64, "float32", True, 66),
+        (2, 200, 200, 3, 128, "float32", False, None),
+        (2, 64, 130, 2, 32, "float32", True, 21),
+        (2, 130, 64, 2, 16, "float32", False, 21),
+        (2, 200, 200, 3, 128, "bfloat16", True, 66),
+        (2, 200, 200, 3, 64, "bfloat16", False, None),
+        (2, 77, 150, 4, 32, "bfloat16", True, 25),
+        (2, 150, 77, 4, 16, "bfloat16", False, 25),
+        (2, 200, 200, 3, 128, "bfloat16", True, None),
+        # across the Hopper forward's tiles (128-row query blocks, 64-key
+        # K/V tiles): a pad across the first key tile, ragged 520-row and
+        # 520-key edges, a pad over two whole query blocks (causal: rows
+        # that see no key; not causal: rows that see the keys past the pad),
+        # and a block whose second warpgroup has no rows while the first
+        # reads 9 key tiles
+        (2, 333, 333, 3, 128, "bfloat16", True, 150),
+        (2, 333, 333, 3, 64, "bfloat16", True, 150),
+        (2, 96, 520, 3, 64, "bfloat16", False, None),
+        (2, 96, 520, 3, 128, "bfloat16", False, None),
+        (2, 520, 96, 3, 128, "bfloat16", True, None),
+        (2, 520, 96, 3, 64, "bfloat16", True, None),
+        (2, 400, 400, 3, 128, "bfloat16", True, 300),
+        (2, 400, 400, 3, 64, "bfloat16", False, 300),
+        (2, 60, 520, 3, 128, "bfloat16", False, None),
+        (2, 333, 333, 3, 64, "float32", True, 150),
+        (2, 400, 400, 3, 128, "float32", True, 300),
     ]
     tol = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 1e-3)}
 
     def compare(name, q, k, v, causal, pad, dtype):
         o, lse = attn.flash_attention(q, k, v, causal=causal, pad=pad, return_lse=True)
+        again = attn.flash_attention(q, k, v, causal=causal, pad=pad, return_lse=True)
         torch.cuda.synchronize()
+        same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
         po, plse = attn._flash_attention_plain(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5,
                                                pad=pad)
         err_o = (o.float() - po.float()).abs().max().item()
         real = plse > attn.NEG_INF / 2
         err_lse = (lse - plse).abs()[real].max().item()
         masked_ok = bool((lse[~real] == attn.NEG_INF).all().item())
-        ok = err_o <= tol[dtype][0] and err_lse <= tol[dtype][1] and masked_ok
+        row = row_errs((o,), (po,))[0]
+        ok = (err_o <= tol[dtype][0] and err_lse <= tol[dtype][1] and masked_ok
+              and row <= ROW_TOL[dtype] and same)
         log(f"[kernel] {name} {dtype}: O err {err_o:.3g} (tol {tol[dtype][0]}), "
-            f"LSE err {err_lse:.3g} (tol {tol[dtype][1]}), masked rows LSE=-1e30 {masked_ok}")
+            f"LSE err {err_lse:.3g} (tol {tol[dtype][1]}), masked rows LSE=-1e30 {masked_ok}, "
+            f"O row error {row:.3g} (tol {ROW_TOL[dtype]}), two calls the same bits {same}")
         check(ok, f"flash_fwd disagrees with its plain version on {name} {dtype}")
         return err_o
 
-    for b, t, t_kv, h, d, dtype, causal, padded in cases:
+    for b, t, t_kv, h, d, dtype, causal, pad0 in cases:
         dt = getattr(torch, dtype)
         q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, t_kv, h, d), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, t_kv, h, d), generator=gen, device="cuda").to(dt)
-        pad = torch.tensor([min(t, t_kv) // 3, 0], device="cuda") if padded else None
-        compare(f"B{b} T{t} Tkv{t_kv} H{h} D{d} causal={causal} pad={padded}",
+        pad = None if pad0 is None else torch.tensor([pad0, 0], device="cuda")
+        compare(f"B{b} T{t} Tkv{t_kv} H{h} D{d} causal={causal} pad={pad0}",
                 q, k, v, causal, pad, dtype)
     q, k, v, pad = flagship_prefill_inputs(torch, gen)
-    return compare("flagship prefill B8 T512 H8 D128 causal pad", q, k, v, True, pad, "bfloat16")
+    prefill_err = compare("flagship prefill B8 T512 H8 D128 causal pad", q, k, v, True, pad,
+                          "bfloat16")
+    q, k, v = flagship_train_attention_inputs(torch, gen)[:3]
+    train_err = compare("flagship training B8 T1024 H8 D128 causal", q, k, v, True, None,
+                        "bfloat16")
+    return max(prefill_err, train_err)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -242,20 +312,31 @@ def gpu_clocks():
     return smi.stdout.strip() if smi.returncode == 0 else f"not read ({smi.stderr.strip()})"
 
 
+def bound_ms(nbytes, flops):
+    """The least time the card could take: bytes over the HBM rate or the
+    products over the bf16 tensor-core peak, whichever is longer; and which."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
 def phase_kernel_timing(torch, attn, gen):
+    """The forward at the flagship prefill shape (causal, pad) and at the
+    training shape (causal, LSE returned), each in turn in one loop with
+    SDPA's forward on the same inputs, L2 flushed before each call; then the
+    plain version.  Returns the prefill's numbers (the kernels line)."""
     import torch.nn.functional as F
 
     q, k, v, pad = flagship_prefill_inputs(torch, gen)
     h, d = q.shape[2], q.shape[3]
-    ms = time_cold(torch, lambda: attn.flash_attention(q, k, v, causal=True, pad=pad))
-    launch_ms = time_cold(torch, lambda: attn.flash_attention(q, k, v, causal=True, pad=pad),
-                          hide_launch=False)
-    plain_ms = time_cold(torch, lambda: attn._flash_attention_plain(
-        q, k, v, causal=True, scale=d ** -0.5, pad=pad), reps=7)
     keys = torch.arange(T, device="cuda")
     mask = (keys[None, :] <= keys[:, None])[None, None] & (keys[None, None, None, :] >= pad[:, None, None, None])
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_cold(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    fns = {"kernel": lambda: attn.flash_attention(q, k, v, causal=True, pad=pad),
+           "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)}
+    ms = time_cold_in_turn(torch, fns)
+    launch = time_cold_in_turn(torch, fns, hide_launch=False)
+    plain_ms = time_cold(torch, lambda: attn._flash_attention_plain(
+        q, k, v, causal=True, scale=d ** -0.5, pad=pad), reps=7)
     # bound: what the output depends on read once and each output written
     # once, over HBM; the products the data needs, over the bf16 tensor-core
     # peak.  The rows below pad[b] are masked for every query and are fully
@@ -267,13 +348,37 @@ def phase_kernel_timing(torch, attn, gen):
     nbytes = (3 * float(live.sum()) * row_bytes + q.numel() * q.element_size() + B * h * T * 4
               + pad.numel() * pad.element_size())
     flops = 4 * d * h * float(np.sum(live * (live + 1) / 2))
-    t_bytes, t_flops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
-    bound_ms, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
-    log(f"[timing] flash_fwd at B8 T512 H8 D128 bf16 causal+pad (L2 flushed, median, device time): "
-        f"kernel {ms:.4f} ms (with the host's launch: {launch_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+    bound, bound_by = bound_ms(nbytes, flops)
+    log(f"[timing] flash_fwd at B8 T512 H8 D128 bf16 causal+pad (L2 flushed, median of 31, device "
+        f"time, kernel and sdpa in turn in one loop): kernel {ms['kernel']:.4f} ms, sdpa forward "
+        f"{ms['sdpa']:.4f} ms, kernel / sdpa {ms['kernel'] / ms['sdpa']:.3f}x; bound {bound:.4f} ms by "
+        f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), kernel / bound "
+        f"{ms['kernel'] / bound:.2f}x; plain {plain_ms:.4f} ms; with the host's launch in the time: "
+        f"kernel {launch['kernel']:.4f} ms, sdpa {launch['sdpa']:.4f} ms")
+
+    q, k, v = flagship_train_attention_inputs(torch, gen)[:3]
+    b, t = q.shape[:2]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {"kernel": lambda: attn.flash_attention(q, k, v, causal=True, return_lse=True),
+           "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)}
+    with torch.no_grad():
+        tms = time_cold_in_turn(torch, fns)
+        tlaunch = time_cold_in_turn(torch, fns, hide_launch=False)
+        tplain = time_cold(torch, lambda: attn._flash_attention_plain(
+            q, k, v, causal=True, scale=d ** -0.5), reps=7)
+    # q, k, v read and O written once, LSE written once; the causal pairs' two products
+    tbytes = 4 * q.numel() * q.element_size() + b * h * t * 4
+    tflops = 4 * d * h * b * t * (t + 1) / 2
+    tbound, tbound_by = bound_ms(tbytes, tflops)
+    log(f"[timing] flash_fwd at B8 T1024 H8 D128 bf16 causal, LSE returned (the training step's; "
+        f"L2 flushed, median of 31, device time, kernel and sdpa in turn in one loop): kernel "
+        f"{tms['kernel']:.4f} ms, {tflops / tms['kernel'] / 1e9:.1f} TFLOP/s of the causal products; "
+        f"sdpa forward (is_causal) {tms['sdpa']:.4f} ms, kernel / sdpa "
+        f"{tms['kernel'] / tms['sdpa']:.3f}x; bound {tbound:.4f} ms by {tbound_by} "
+        f"({tbytes / 1e6:.1f} MB, {tflops / 1e9:.2f} GFLOP), kernel / bound "
+        f"{tms['kernel'] / tbound:.2f}x; plain {tplain:.4f} ms; with the host's launch in the time: "
+        f"kernel {tlaunch['kernel']:.4f} ms, sdpa {tlaunch['sdpa']:.4f} ms")
+    return dict(ms=ms["kernel"], plain_ms=plain_ms, library_ms=ms["sdpa"], bound_ms=bound,
                 bound_by=bound_by)
 
 
@@ -283,32 +388,6 @@ def flagship_train_attention_inputs(torch, gen):
     cfg = flagship()
     shape = (TRAIN_B, TRAIN_T, cfg.n_heads, cfg.d_head)
     return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(4))
-
-
-# The backward kernels against _flash_bwd_plain, row by row: each gradient
-# row (one query or key of one head, D values) is held to its own norm,
-#   ||got_r - want_r|| / max(||want_r||, 0.1 * RMS over rows of ||want_r||).
-# Under causal the rows differ in size by 10-100x (the first keys are seen by
-# every query, the last by a few), so a limit relative to the largest element
-# would let a fault on the small late rows pass; relative to each row's own
-# norm such a fault reads as O(1).  Rows below the floor are held in absolute
-# terms: there a sound kernel's error follows the size of the terms summed,
-# not of their sum (dQ of a row that sees one key is zero by cancellation,
-# and an fp32 kernel leaves ~1e-6 of it; pad rows are zero).  Limits: fp32 1e-4 (full fp32 in both; summation order differs);
-# bf16 2e-2 (the gradients are rounded to bf16, 2^-8 relative, and the kernels
-# round P and dS to bf16 before their products, as FA2 does: a sound kernel
-# reads about 5e-3 at the flagship shape, a skipped or unwritten tile ~1).
-BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-
-
-def bwd_row_errs(got, want):
-    """The row error above, for each of (dQ, dK, dV)."""
-    errs = []
-    for g, w in zip(got, want):
-        diff, norm = (g.float() - w.float()).norm(dim=-1), w.float().norm(dim=-1)
-        floor = 0.1 * norm.square().mean().sqrt()
-        errs.append((diff / norm.clamp(min=floor.item())).max().item())
-    return errs
 
 
 def phase_bwd_check(torch, attn, gen):
@@ -340,10 +419,10 @@ def phase_bwd_check(torch, attn, gen):
         want = attn._flash_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale, pad=pad,
                                      dlse=dlse)
         abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
-        rel = bwd_row_errs(got, want)
-        ok = max(rel) <= BWD_TOL[dtype] and all(g.dtype == q.dtype for g in got)
+        rel = row_errs(got, want)
+        ok = max(rel) <= ROW_TOL[dtype] and all(g.dtype == q.dtype for g in got)
         log(f"[bwd] {name} {dtype} dlse={with_dlse}: dQ/dK/dV row error "
-            f"{'/'.join(f'{r:.3g}' for r in rel)} (tol {BWD_TOL[dtype]}), max abs err "
+            f"{'/'.join(f'{r:.3g}' for r in rel)} (tol {ROW_TOL[dtype]}), max abs err "
             f"{'/'.join(f'{e:.3g}' for e in abs_errs)}")
         check(ok, f"flash backward disagrees with its plain version on {name} {dtype}")
         return got, abs_errs
@@ -406,9 +485,8 @@ def phase_bwd_timing(torch, attn, gen):
         return n_products * 2 * d * pairs
 
     def bound(n_products, n_in, n_stats, n_out):
-        t_flops = flops(n_products) / BF16_FLOPS * 1e3
-        t_bytes = ((n_in + n_out) * row + n_stats * stats) / HBM_BYTES_S * 1e3
-        return max(t_flops, t_bytes), "bytes" if t_bytes >= t_flops else "operations", t_bytes
+        nbytes = (n_in + n_out) * row + n_stats * stats
+        return (*bound_ms(nbytes, flops(n_products)), nbytes / HBM_BYTES_S * 1e3)
 
     def tflops(n_products, t_ms):
         return flops(n_products) / t_ms / 1e9
@@ -708,7 +786,8 @@ def profile_steps(torch, fn, step_ms, n=3):
         f"the device timeline of the profiled steps {(1 - covered / window) * 100:.1f}% of "
         f"{window / 1e3 / n:.2f} ms a step; device ms a step by group: "
         + "; ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    ours = [e for e in kernels if any(k in e.key.lower() for k in KERNEL_GROUPS[0][1])]
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12] + ours:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms/step  "
             f"{e.count / n:5.0f} launches/step  {e.key[:110]}")
 

@@ -72,7 +72,12 @@ def _flash_attention_plain(q, k, v, *, causal: bool, scale: float, pad=None):
     input dtype.  Returns (O [B,T,H,D] in q's dtype, LSE [B,H,T] fp32).
     Masked probabilities are zero, so a fully masked row gives O = 0 and
     LSE = -1e30."""
-    s = _masked_scores(q, k, causal=causal, scale=scale, pad=pad)
+    return _plain_from_scores(_masked_scores(q, k, causal=causal, scale=scale, pad=pad), v, q.dtype)
+
+
+def _plain_from_scores(s, v, dtype):
+    """(O [B,T,H,D] in `dtype`, LSE [B,H,T]) of the plain forward, given
+    its masked fp32 scores s [B, H, T, T_kv] (-1e30 where masked)."""
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(s <= NEG_INF, torch.zeros_like(p), p)
@@ -80,7 +85,7 @@ def _flash_attention_plain(q, k, v, *, causal: bool, scale: float, pad=None):
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
-    return o.to(q.dtype), lse
+    return o.to(dtype), lse
 
 
 def _bwd_delta(o, do, dlse=None):

@@ -106,56 +106,18 @@ struct Params {
 
 // ------------------------------------------ bf16, D 64 and 128: Hopper
 
-constexpr int WG_THREADS = 128;
 constexpr int HOP_THREADS = 3 * WG_THREADS;  // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int HOP_CONSUMER_WARPS = 8;
 constexpr int HOP_STAGES = 2;    // ring depth
-constexpr int CONSUMER_REGS = 240;
-constexpr int PRODUCER_REGS = 24;  // 2 x 128 x 240 + 128 x 24 = 64,512 of an SM's 65,536
 constexpr int HKV_KEYS = 128;    // dK/dV: keys per block, 64 per consumer warpgroup
 constexpr int HKV_ROWS = 64;     // dK/dV: query rows per ring stage
 constexpr int HQ_ROWS = 128;     // dQ: query rows per block, 64 per consumer warpgroup
 constexpr int HQ_KEYS = 64;      // dQ: keys per ring stage
 
-constexpr int HOP_GROUP = 16;    // (b, h) pairs whose blocks run together
-
 // The inputs' maps, and the outputs' (dQ; or dK and dV) in 64-row boxes.
 struct TmaMaps {
   CUtensorMap q, k, v, dout, out0, out1;
 };
-
-// The (b, h) pair and the causal-length rank y (0: the block that loops
-// over the most tiles) of this block, from a 1-d grid of n_bh * n_y blocks.
-// Blocks run in groups of HOP_GROUP pairs, the longest first within a
-// group, so that the blocks in flight (one an SM) re-read the K/V (or
-// Q/dO) tiles of a few pairs, which stay in L2, instead of those of every
-// pair, which would not.
-__device__ __forceinline__ void block_coords(int n_bh, int n_y, int& bh, int& y) {
-  const int first = blockIdx.x / (HOP_GROUP * n_y) * HOP_GROUP;
-  const int size = min(HOP_GROUP, n_bh - first);
-  const int idx = blockIdx.x - first * n_y;
-  y = idx / size;
-  bh = first + idx % size;
-}
-
-// The K-major descriptor of rows [r0, r0 + 64) (or all 64 rows of a
-// 64-row tile), k-step kk (columns 16 kk .. 16 kk + 15), of an [R, D] tile.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int r0, int kk) {
-  return wgmma_desc(tile + (kk >> 2) * R * 128 + r0 * 128 + (kk & 3) * 32, 16, 1024);
-}
-
-// The MN-major descriptor of K rows [16 ks, 16 ks + 16) of an [R, D] tile,
-// all D columns.
-template <int R>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int ks) {
-  return wgmma_desc(tile + ks * 2048, R * 128, 1024);
-}
-
-// The accumulator element i of an m64n64 product in thread (warp, g, t) of
-// its warpgroup: row 16 warp + g + 8 ((i >> 1) & 1), column col64(i, t).
-__device__ __forceinline__ int col64(int i, int t) { return 8 * (i >> 2) + 2 * t + (i & 1); }
-__device__ __forceinline__ int row_half(int i) { return (i >> 1) & 1; }
 
 // 1024 bytes of slack let the kernel align its tiles to the 128-byte
 // swizzle's 1024-byte period.
@@ -333,8 +295,8 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
     // product reads any more, by TMA stores (rows past T_kv not written)
     if (kw0 >= p.Tkv) return;
     const uint32_t dk_tile = sk + 64 * wg * 128, dv_tile = sv + 64 * wg * 128;
-    acc_to_tma_tile<D>(dk_tile, HKV_KEYS * 128, dk, p.scale, warp, g, t);
-    acc_to_tma_tile<D>(dv_tile, HKV_KEYS * 128, dv, 1.f, warp, g, t);
+    acc_to_tma_tile<D>(dk_tile, HKV_KEYS * 128, dk, {p.scale, p.scale}, warp, g, t);
+    acc_to_tma_tile<D>(dv_tile, HKV_KEYS * 128, dv, {1.f, 1.f}, warp, g, t);
     fence_proxy_async_smem();
     named_barrier_sync(1 + wg, WG_THREADS);
     if (tid == 0) {
@@ -496,7 +458,7 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
     // reads any more, by TMA stores (rows past T not written)
     if (qw0 >= p.T) return;
     const uint32_t dq_tile = sq + 64 * wg * 128;
-    acc_to_tma_tile<D>(dq_tile, HQ_ROWS * 128, dq, p.scale, warp, g, t);
+    acc_to_tma_tile<D>(dq_tile, HQ_ROWS * 128, dq, {p.scale, p.scale}, warp, g, t);
     fence_proxy_async_smem();
     named_barrier_sync(1 + wg, WG_THREADS);
     if (tid == 0) {

@@ -11,40 +11,83 @@
 // their probabilities zeroed; a fully masked row gives O = 0, LSE = -1e30.
 // q, k, v are read in the [B, T, H, D] layout through their strides, so no
 // transpose to [B*H, T, D] is made on the host.  Any T and T_kv: the ragged
-// edge of a tile is masked here.
+// edge of a tile is masked here.  No atomics: the same bits on every call.
 //
-// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the serving
-// prefill shape (B 8, T 512, H 8, D 128, bf16, causal) without pad, q, k, v
-// and O are 33.6 MB, about 10 us of memory traffic, against 4.3 GFLOP of
-// causal products, about 4.3 us of tensor-core work.  With the rows padded
-// to 128..512 real tokens, as the serving smoke run prefills them, the
-// output depends only on the live q, k, v rows: 15.7 MB of them plus 8.5 MB
-// of O and LSE, about 7.2 us, against 1.9 GFLOP, about 2 us.  So one
-// launch is bound by bytes.  What the design does about it: a block owns
-// one (64-row query tile, b*h) pair, reads its Q tile once, and streams K/V
-// tiles of 64 keys through shared memory, double-buffered with cp.async so
-// that the next tile's copy overlaps this tile's products; the scores and
-// probabilities live only in registers, so device memory sees q, k, v and
-// O once each (the other query tiles of a head re-read K/V from the 50 MB
-// L2).  Causal blocks stop at the diagonal, and the grid launches the
-// longest (last) query tiles first so that the short ones fill the tail.
-// Key tiles below pad[b], and query tiles wholly inside the pad, are still
-// read and masked here: the bound above does not count them.
+// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
+//   * serving prefill (B 8, T 512, H 8, D 128, bf16, causal, the rows
+//     left-padded to 128..512 live tokens): the output depends only on the
+//     live q, k, v rows, 15.7 MB, plus 8.5 MB of O and LSE written, about
+//     7.2 us, against 1.9 GFLOP of causal products among live tokens, about
+//     2 us: bound by bytes.
+//   * training (B 8, T 1024, H 8, D 128, bf16, causal, no pad, LSE
+//     returned): q, k, v and O are 67.1 MB and LSE 0.26 MB, 20.1 us,
+//     against 17.2 GFLOP, 17.4 us: bound by bytes, nearly balanced.  P's
+//     hi + lo split (below) makes the tensor-core work 1.5x, 26 us at peak.
 //
-// Two instances of the same algorithm:
-//   bf16: four warps, 16 query rows each, mma.sync m16n8k16 with fp32
-//         accumulation for Q K^T and P V.  P enters P V as the sum of two
-//         bf16 parts (hi + lo), so it keeps ~16 bits as the reference's
-//         fp32 P does; one bf16 part alone flipped near-tie greedy tokens
-//         of the flagship model against the fp32 plain version.
-//   fp32: CUDA-core FMAs in full fp32 (never TF32), four threads per query
-//         row, each holding every fourth element of d_head.
+// bf16 at D 64 and 128 (every launch of the serving and training paths):
+// the Hopper design.
+//   * A block owns 128 query rows of one (b, h): two consumer warpgroups of
+//     64 rows each (threads 0-255) compute, one producer warp (the first of
+//     warpgroup 2) issues every TMA load, and setmaxnreg moves registers
+//     from the producer warpgroup (24 a thread) to the consumers (240).
+//   * Q comes in once by TMA.  K and V stream through a ring of FWD_STAGES
+//     stages of 64 keys, K and V with a full and an empty mbarrier each, K
+//     one tile ahead of V: tile j's K is needed with tile j - 1's V.  Tiles
+//     arrive in 64-column boxes with 128-byte swizzle through tensor maps
+//     over the [B, T, H, D] strides (encoded on the host per call); rows
+//     past T or T_kv are zero-filled, which gives a score of 0, so the
+//     predicate still masks the ragged edge.
+//   * S = Q K^T is an SS wgmma (m64n64, Q and K K-major); P V is an RS
+//     wgmma (m64nD, P from registers, V MN-major from the same tile).  P
+//     enters as hi + lo bf16 parts, two products a tile into the same fp32
+//     O, so it keeps ~16 bits as the reference's fp32 P does: P rounded to
+//     bf16 once flipped a flagship greedy token against the fp32 plain
+//     version.
+//   * Tile j's S and tile j - 1's P V are issued together, so that the
+//     tensor cores run P V while the warpgroup computes tile j's softmax;
+//     O is rescaled, and P becomes A fragments, once P V is done (FA3's
+//     intra-warpgroup overlap).  The first and last tiles are peeled, so
+//     that the steady loop issues and waits without a branch: with a branch
+//     between a wgmma and its wait, ptxas waits after every wgmma.
+//   * Online softmax in fp32 registers in base 2: scale * log2(e) folded
+//     into the scores, 2^x by ex2.approx.  A tile that no mask reaches
+//     (inside T_kv, past the pad, below the diagonal for all 64 rows of the
+//     warpgroup) takes a path with no predicate.
+//   * Only the tiles the rows can see are read: causal blocks stop at the
+//     diagonal, key tiles wholly below pad[b] are never loaded, a warpgroup
+//     releases unread the tiles past its last row, and a block whose rows
+//     see no key at all (inside the pad under causal) loads nothing and
+//     writes O = 0 and LSE = -1e30.
+//   * O leaves normalised by l through the warpgroup's own Q rows, swizzled,
+//     by TMA stores that clip rows past T; LSE per row, guarded at T.  A row
+//     with l = 0 gets the sentinel written, not computed through a log.
+//   * Blocks run in groups of 16 (b, h) pairs, the causally longest first
+//     within a group (block_coords).
+//   * Why 64-key tiles: measured against 128-key tiles in one loop
+//     (scripts/torch_flash_fwd_ablation.py, PERF.md), 64 keys are faster at
+//     both shapes: a warpgroup skips the half of the diagonal block's keys
+//     past its rows, the pad skip is finer, and the overlap keeps two
+//     tiles' P in registers: O 64, S 32 and P's hi + lo A fragments 32 a
+//     consumer thread at D 128.  K and V take 32 KB a stage at D 128, so two
+//     stages and Q fit in 97 KB.
+//   * What bounds it now (PERF.md, scripts/torch_flash_fwd_ablation.py): at
+//     the training shape the products and the softmax between them, at
+//     about 40% of the tensor cores' peak on the 1.5x work: with no K/V
+//     tile loaded the kernel takes 96% of its time, while the tile stream
+//     alone takes 59%.  At the prefill shape the stream alone takes 77%.
+// bf16 at D 16 and 32: four warps of mma.sync m16n8k16 with cp.async double
+//   buffering (the first port's design; their 32- and 64-byte rows would
+//   need other swizzle modes, and no main path runs them).  P enters P V as
+//   hi + lo bf16 parts here too.
+// fp32, every D: CUDA-core FMAs in full fp32 (never TF32), four threads per
+//   query row, each holding every fourth element of d_head.
 // D (d_head) is a template argument: 16, 32, 64 or 128.
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
+// Tiles of the mma.sync (bf16, D 16 and 32) and fp32 instances
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per shared-memory tile
 
@@ -68,7 +111,284 @@ __device__ __forceinline__ bool key_ok(const Params& p, int row, int key, int pa
   return mask_ok(row, key, p.Tkv, pad, p.causal);
 }
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------------ bf16, D 64 and 128: Hopper
+
+constexpr int FWD_CONSUMERS = 2;  // consumer warpgroups a block, 64 query rows each
+constexpr int FWD_THREADS = (FWD_CONSUMERS + 1) * WG_THREADS;  // and the producer warpgroup
+constexpr int FWD_ROWS = 64 * FWD_CONSUMERS;  // query rows a block
+constexpr int FWD_KEYS = 64;                  // keys a ring stage
+constexpr int FWD_STAGES = 2;                 // ring depth
+
+// The inputs' maps (q in FWD_ROWS-row boxes, k and v in FWD_KEYS-row
+// boxes) and O's, in 64-row boxes: one warpgroup's rows.
+struct TmaMaps {
+  CUtensorMap q, k, v, o;
+};
+
+template <int D>
+constexpr int fwd_wgmma_smem_bytes() {
+  // Q [FWD_ROWS, D]; per stage K and V [FWD_KEYS, D]; per stage the full
+  // and empty barriers of K and of V, and Q's barrier
+  return FWD_ROWS * D * 2 + FWD_STAGES * 2 * FWD_KEYS * D * 2 + 8 * (4 * FWD_STAGES + 1) + 1024;
+}
+
+// One tile's online softmax in fp32, in place of its scores sc (an m64n64
+// accumulator): the base-2 scores, the row max m and this thread's share of
+// the row sum l brought up to date, and alpha, the factor by which O's rows
+// must be rescaled.  `whole`: no mask reaches the tile, so no predicate.
+// Masked probabilities are zeroed by the predicate (the score held at
+// -1e30), never left to exp.
+__device__ __forceinline__ void softmax_tile(float (&sc)[FWD_KEYS / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], bool whole,
+                                             const Params& p, const int (&rows)[2], int kt0,
+                                             int pad, int t, float scale_log2) {
+  float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < FWD_KEYS / 2; ++i) {
+      sc[i] *= scale_log2;
+      mx[row_half(i)] = fmaxf(mx[row_half(i)], sc[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < FWD_KEYS / 2; ++i) {
+      const int r = row_half(i);
+      sc[i] = mask_ok(rows[r], kt0 + col64(i, t), p.Tkv, pad, p.causal) ? sc[i] * scale_log2
+                                                                       : NEG_INF;
+      mx[r] = fmaxf(mx[r], sc[i]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // a row is spread over the 4 lanes of a quad
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2_approx(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < FWD_KEYS / 2; ++i) sc[i] = exp2_approx(sc[i] - mx[row_half(i)]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < FWD_KEYS / 2; ++i)
+      sc[i] = sc[i] <= NEG_INF ? 0.f : exp2_approx(sc[i] - mx[row_half(i)]);
+  }
+#pragma unroll
+  for (int i = 0; i < FWD_KEYS / 2; ++i) rs[row_half(i)] += sc[i];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    flash_fwd_bf16_wgmma(const Params p, const __grid_constant__ TmaMaps maps) {
+  constexpr int NB = D / 64;         // 64-column boxes a row
+  constexpr int NS = FWD_KEYS / 2;   // score accumulators a thread
+  constexpr int KS = FWD_KEYS / 16;  // k-steps of P V
+  constexpr uint32_t Q_TILE = FWD_ROWS * D * 2, KV_TILE = FWD_KEYS * D * 2;
+  extern __shared__ unsigned char smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t ring = sq + Q_TILE;  // stage s: K at ring + 2 s KV_TILE, V after it
+  const uint32_t bars = ring + FWD_STAGES * 2 * KV_TILE;
+  auto full_k = [&](int j) { return bars + 8 * (j % FWD_STAGES); };
+  auto full_v = [&](int j) { return bars + 8 * (FWD_STAGES + j % FWD_STAGES); };
+  auto empty_k = [&](int j) { return bars + 8 * (2 * FWD_STAGES + j % FWD_STAGES); };
+  auto empty_v = [&](int j) { return bars + 8 * (3 * FWD_STAGES + j % FWD_STAGES); };
+  auto k_tile = [&](int j) { return ring + 2 * (j % FWD_STAGES) * KV_TILE; };
+  auto v_tile = [&](int j) { return ring + (2 * (j % FWD_STAGES) + 1) * KV_TILE; };
+  // the parity of tile j's round through its stage: consumers wait for it
+  // on the full barriers, the producer for its flip on the empty ones
+  auto phase = [&](int j) { return static_cast<uint32_t>((j / FWD_STAGES) & 1); };
+  const uint32_t q_bar = bars + 32 * FWD_STAGES;
+
+  const int n_y = (p.T + FWD_ROWS - 1) / FWD_ROWS;
+  int bh, y;
+  block_coords(p.B * p.H, n_y, bh, y);
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = (n_y - 1 - y) * FWD_ROWS;  // under causal the last query blocks see the most keys
+  const int pad = p.pad ? max(p.pad[b], 0) : 0;
+  // The rows of this block see keys [pad, kv_end) only: the tiles wholly
+  // below the pad are never loaded, causal blocks stop at the diagonal, and
+  // a block with no such key loads nothing.
+  const int kv_end = p.causal ? min(p.Tkv, q0 + FWD_ROWS) : p.Tkv;
+  const int first = pad / FWD_KEYS;
+  const int n_tiles = pad < kv_end ? (kv_end + FWD_KEYS - 1) / FWD_KEYS - first : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * FWD_CONSUMERS);  // one arrival per consumer warp
+      mbar_init(empty_v(s), 4 * FWD_CONSUMERS);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= FWD_CONSUMERS * WG_THREADS) {
+    // producer warpgroup: one thread issues every load, the others are done
+    regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != FWD_CONSUMERS * WG_THREADS || n_tiles == 0) return;
+    mbar_arrive_expect_tx(q_bar, Q_TILE);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_load_4d(sq + nb * FWD_ROWS * 128, &maps.q, q_bar, 64 * nb, h, q0, b);
+    // K runs one tile ahead of V, in the order the consumers take them: S
+    // of tile j, then P V of tile j - 1
+    for (int j = 0; j <= n_tiles; ++j) {
+      if (j < n_tiles) {
+        mbar_wait(empty_k(j), phase(j) ^ 1);
+        mbar_arrive_expect_tx(full_k(j), KV_TILE);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_4d(k_tile(j) + nb * FWD_KEYS * 128, &maps.k, full_k(j), 64 * nb, h,
+                      (first + j) * FWD_KEYS, b);
+      }
+      if (j > 0) {
+        const int i = j - 1;
+        mbar_wait(empty_v(i), phase(i) ^ 1);
+        mbar_arrive_expect_tx(full_v(i), KV_TILE);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_4d(v_tile(i) + nb * FWD_KEYS * 128, &maps.v, full_v(i), 64 * nb, h,
+                      (first + i) * FWD_KEYS, b);
+      }
+    }
+  } else {
+    regs_alloc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int qw0 = q0 + 64 * wg;  // this warpgroup's first query row
+    const int rows[2] = {qw0 + 16 * warp + g, qw0 + 16 * warp + g + 8};
+    const float scale_log2 = p.scale * LOG2E;
+    // The tiles this warpgroup computes on: a prefix of the block's, none
+    // for rows past T or (under causal) wholly inside the pad, and under
+    // causal none past its last row.  It releases the others unread.
+    const int n_live = qw0 >= p.T || (p.causal && pad >= qw0 + 64) ? 0
+                       : p.causal ? min(n_tiles, (qw0 + 64 + FWD_KEYS - 1) / FWD_KEYS - first)
+                                  : n_tiles;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);  // this warp is done with the tile
+    };
+    auto s_product = [&](float (&sc)[NS], int j) {  // S = Q K^T: 64 rows x FWD_KEYS keys
+      wgmma_m64n64k16_ss_init(sc, kmajor_desc<FWD_ROWS>(sq, 64 * wg, 0),
+                              kmajor_desc<FWD_KEYS>(k_tile(j), 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(sc, kmajor_desc<FWD_ROWS>(sq, 64 * wg, kk),
+                           kmajor_desc<FWD_KEYS>(k_tile(j), 0, kk));
+      wgmma_commit();
+    };
+    // m: the running row max of the base-2 scores; l: this thread's share
+    // of the row sum (the quad's four shares meet at the end); P of the
+    // tile that waits for its V, as hi + lo A fragments
+    float o[D / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, sc[NS], alpha[2];
+    uint32_t phi[KS][4], plo[KS][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    auto softmax = [&](int j) {
+      const int kt0 = (first + j) * FWD_KEYS;
+      // a tile that no mask reaches skips the predicate
+      const bool whole = kt0 + FWD_KEYS <= p.Tkv && kt0 >= pad &&
+                         (!p.causal || qw0 >= kt0 + FWD_KEYS - 1);
+      softmax_tile(sc, m, l, alpha, whole, p, rows, kt0, pad, t, scale_log2);
+    };
+    auto p_frags = [&]() {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_a_frag_split(phi[ks], plo[ks], sc, ks);
+    };
+    auto pv_product = [&](int j) {  // O += P V, P as hi + lo bf16 parts
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_rs<D>(o, phi[ks], mnmajor_desc<FWD_KEYS>(v_tile(j), ks));
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_rs<D>(o, plo[ks], mnmajor_desc<FWD_KEYS>(v_tile(j), ks));
+      wgmma_commit();
+    };
+    if (n_tiles > 0) mbar_wait(q_bar, 0);
+
+    if (n_live > 0) {
+      // tile 0
+      mbar_wait(full_k(0), 0);
+      wgmma_fence();
+      s_product(sc, 0);
+      wgmma_wait<0>();
+      wgmma_fence_operand(sc);
+      release(empty_k(0));
+      softmax(0);
+      p_frags();
+      // Tile j's S and tile j - 1's P V are issued together, so that the
+      // tensor cores run P V while this warpgroup computes tile j's
+      // softmax; O is rescaled and P becomes A fragments once P V is done.
+      // The issues and waits take no branch, so that ptxas keeps the
+      // products asynchronous.
+      for (int j = 1; j < n_live; ++j) {
+        mbar_wait(full_k(j), phase(j));
+        mbar_wait(full_v(j - 1), phase(j - 1));
+        wgmma_fence();
+        s_product(sc, j);
+        pv_product(j - 1);
+        wgmma_wait<1>();  // S done; P V may still run
+        wgmma_fence_operand(sc);
+        release(empty_k(j));
+        softmax(j);
+        wgmma_wait<0>();
+        wgmma_fence_operand(o);
+        wgmma_fence_operand(phi);
+        wgmma_fence_operand(plo);
+        release(empty_v(j - 1));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[row_half(i)];
+        p_frags();
+      }
+      // the last tile's P V
+      mbar_wait(full_v(n_live - 1), phase(n_live - 1));
+      wgmma_fence();
+      pv_product(n_live - 1);
+      wgmma_wait<0>();
+      wgmma_fence_operand(o);
+      wgmma_fence_operand(phi);
+      wgmma_fence_operand(plo);
+      release(empty_v(n_live - 1));
+    }
+    for (int j = n_live; j < n_tiles; ++j) {  // tiles this warpgroup's rows cannot see
+      mbar_wait(full_k(j), phase(j));
+      release(empty_k(j));
+      mbar_wait(full_v(j), phase(j));
+      release(empty_v(j));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (qw0 >= p.T) return;
+    // A fully masked row has l = 0: O = 0, and LSE = -1e30 written as such.
+    const float inv[2] = {l[0] == 0.f ? 1.f : 1.f / l[0], l[1] == 0.f ? 1.f : 1.f / l[1]};
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < p.T)
+          p.lse[(long long)bh * p.T + rows[r]] = l[r] == 0.f ? NEG_INF : m[r] * LN2 + logf(l[r]);
+    }
+    // O leaves through this warpgroup's own Q rows, which no product reads
+    // any more, by TMA stores (rows past T not written)
+    const uint32_t o_tile = sq + 64 * wg * 128;
+    acc_to_tma_tile<D>(o_tile, FWD_ROWS * 128, o, inv, warp, g, t);
+    fence_proxy_async_smem();
+    named_barrier_sync(1 + wg, WG_THREADS);
+    if (tid == 0) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        tma_store_4d(&maps.o, o_tile + nb * FWD_ROWS * 128, 64 * nb, h, qw0, b);
+      tma_store_wait();
+    }
+  }
+}
+
+// ------------------------------------------ bf16, D 16 and 32: mma.sync
 
 template <int D>
 constexpr int bf16_smem_bytes() {
@@ -80,7 +400,7 @@ constexpr int bf16_smem_bytes() {
 // K/V tiles are double-buffered: the copy of tile j + 1 (cp.async) is in
 // flight while the block computes on tile j.
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
+__global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
   static_assert(BQ == BK, "Q shares a tile-sized buffer with K");
   constexpr int S = D + 8;  // row stride of every tile (bf16): rows fall on other banks
   extern __shared__ __align__(16) unsigned char smem[];
@@ -324,18 +644,35 @@ cudaError_t launch(Kernel kernel, int threads, int smem, const Params& p, cudaSt
   return launch_kernel(kernel, dim3(p.B * p.H, (p.T + BQ - 1) / BQ), threads, smem, stream, p);
 }
 
+// The TMA maps of q, k and v (through their strides) and of O.
+bool make_maps(TmaMaps* maps, const Params& p, int D) {
+  return make_bthd_map(&maps->q, p.q, p.B, p.T, p.H, D, p.q_sb, p.q_st, p.q_sh, FWD_ROWS) &&
+         make_bthd_map(&maps->k, p.k, p.B, p.Tkv, p.H, D, p.k_sb, p.k_st, p.k_sh, FWD_KEYS) &&
+         make_bthd_map(&maps->v, p.v, p.B, p.Tkv, p.H, D, p.v_sb, p.v_st, p.v_sh, FWD_KEYS) &&
+         make_bthd_map(&maps->o, p.o, p.B, p.T, p.H, D, p.o_sb, p.o_st, p.o_sh, 64);
+}
+
 template <int D>
 cudaError_t dispatch_dtype(int is_bf16, const Params& p, cudaStream_t stream) {
-  if (is_bf16) return launch(flash_fwd_bf16<D>, 128, bf16_smem_bytes<D>(), p, stream);
-  return launch(flash_fwd_f32<D>, 256, f32_smem_bytes<D>(), p, stream);
+  if (!is_bf16) return launch(flash_fwd_f32<D>, 256, f32_smem_bytes<D>(), p, stream);
+  if constexpr (D < 64) {
+    return launch(flash_fwd_bf16_mma<D>, 128, bf16_smem_bytes<D>(), p, stream);
+  } else {
+    TmaMaps maps{};
+    if (!make_maps(&maps, p, D)) return cudaErrorInvalidValue;
+    const int n_y = (p.T + FWD_ROWS - 1) / FWD_ROWS;
+    return launch_kernel(flash_fwd_bf16_wgmma<D>, dim3(p.B * p.H * n_y), FWD_THREADS,
+                         fwd_wgmma_smem_bytes<D>(), stream, p, maps);
+  }
 }
 
 }  // namespace
 
 // Launches the forward on `stream` and returns cudaGetLastError() after the
-// launch (0 on success).  Pointers are device pointers; strides are in
-// elements; q, k, v, o must have unit stride along d_head and, for bf16,
-// 16-byte-aligned rows.  The caller checks shapes, dtypes and alignment.
+// launch (0 on success), or cudaErrorInvalidValue where the driver refuses
+// a TMA map.  Pointers are device pointers; strides are in elements; q, k,
+// v, o must have unit stride along d_head and, for bf16, 16-byte-aligned
+// rows, strides and base.  The caller checks shapes, dtypes and alignment.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* pad, void* o,
                          void* lse, int B, int T, int Tkv, int H, int D, int is_bf16,
                          long long q_sb, long long q_st, long long q_sh, long long k_sb,

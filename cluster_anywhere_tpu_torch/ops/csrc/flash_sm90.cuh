@@ -1,8 +1,10 @@
 // Hopper (sm_90a) plumbing for hand-written kernels: mbarriers, TMA tile
 // loads and stores through a tensor map, wgmma shared-memory descriptors
 // and products, register reallocation between warpgroups, and the
-// host-side encoding of a [B, T, H, D] bf16 tensor's TMA map.  Header-only,
-// like flash_common.cuh, which it includes; used by flash_bwd.cu.
+// host-side encoding of a [B, T, H, D] bf16 tensor's TMA map, and the
+// layout of a warp-specialised block (two consumer warpgroups, one producer
+// warp).  Header-only, like flash_common.cuh, which it includes; used by
+// flash_fwd.cu and flash_bwd.cu.
 //
 // Conventions (PTX ISA, "Asynchronous warpgroup level matrix multiply"):
 //   * Every tile lands by TMA with 128-byte swizzle, in boxes of 64 bf16
@@ -35,6 +37,7 @@
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ mbarriers
 
@@ -173,6 +176,16 @@ __device__ __forceinline__ void wgmma_a_frag(uint32_t (&a)[4], const float (&acc
   a[3] = pack_bf16(acc[8 * k + 6], acc[8 * k + 7]);
 }
 
+// Columns 16k .. 16k + 15 of an m64nN accumulator as two A operands, hi +
+// lo (split_bf16): a product through both keeps the operand to ~16 bits
+// instead of bf16's 8.
+template <int N>
+__device__ __forceinline__ void wgmma_a_frag_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                   const float (&acc)[N], int k) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_bf16(acc[8 * k + 2 * i], acc[8 * k + 2 * i + 1], hi[i], lo[i]);
+}
+
 // D[64 x 64] = A[64 x 16] B[16 x 64], the first k-step of a product: D's
 // earlier values are neither read nor kept alive
 __device__ __forceinline__ void wgmma_m64n64k16_ss_init(float (&d)[32], uint64_t a, uint64_t b) {
@@ -265,14 +278,15 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "r"(1));
 }
 
-// An m64nD accumulator of this warpgroup times `scale`, as bf16, into a
-// [64, D] tile of shared memory in the TMA layout (64-column boxes `box`
-// bytes apart, 128-byte rows, 128-byte swizzle), ready for tma_store_4d.
-// The swizzle spreads the eight rows of each store over all 32 banks.
+// An m64nD accumulator of this warpgroup, this thread's rows g and g + 8
+// times scale[0] and scale[1], as bf16, into a [64, D] tile of shared memory
+// in the TMA layout (64-column boxes `box` bytes apart, 128-byte rows,
+// 128-byte swizzle), ready for tma_store_4d.  The swizzle spreads the eight
+// rows of each store over all 32 banks.
 template <int D>
 __device__ __forceinline__ void acc_to_tma_tile(uint32_t tile, uint32_t box,
-                                                const float (&acc)[D / 2], float scale, int warp,
-                                                int g, int t) {
+                                                const float (&acc)[D / 2],
+                                                const float (&scale)[2], int warp, int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
@@ -281,7 +295,7 @@ __device__ __forceinline__ void acc_to_tma_tile(uint32_t tile, uint32_t box,
       const uint32_t addr =
           tile + (j >> 3) * box + row * 128 + (((j & 7) ^ (row & 7)) << 4) + 4 * t;
       asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr),
-                   "r"(pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale))
+                   "r"(pack_bf16(acc[4 * j + 2 * r] * scale[r], acc[4 * j + 2 * r + 1] * scale[r]))
                    : "memory");
     }
   }
@@ -311,6 +325,49 @@ template <int N>
 __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
+
+// ------------------------------------------- warp-specialised blocks
+
+// A block of two consumer warpgroups (threads 0-255, 64 rows each) and one
+// producer warpgroup whose first warp issues the TMA loads.
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;  // 2 x 128 x 240 + 128 x 24 = 64,512 of an SM's 65,536
+constexpr int HOP_GROUP = 16;      // (b, h) pairs whose blocks run together
+
+// The (b, h) pair and the causal-length rank y (0: the block that loops
+// over the most tiles) of this block, from a 1-d grid of n_bh * n_y blocks.
+// Blocks run in groups of HOP_GROUP pairs, the longest first within a
+// group, so that the blocks in flight (one an SM) re-read the K/V (or
+// Q/dO) tiles of a few pairs, which stay in L2, instead of those of every
+// pair, which would not.
+__device__ __forceinline__ void block_coords(int n_bh, int n_y, int& bh, int& y) {
+  const int first = blockIdx.x / (HOP_GROUP * n_y) * HOP_GROUP;
+  const int size = min(HOP_GROUP, n_bh - first);
+  const int idx = blockIdx.x - first * n_y;
+  y = idx / size;
+  bh = first + idx % size;
+}
+
+// The K-major descriptor of rows [r0, r0 + 64) (or all 64 rows of a
+// 64-row tile), k-step kk (columns 16 kk .. 16 kk + 15), of an [R, D] tile.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int r0, int kk) {
+  return wgmma_desc(tile + (kk >> 2) * R * 128 + r0 * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// The MN-major descriptor of K rows [16 ks, 16 ks + 16) of an [R, D] tile,
+// all D columns.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int ks) {
+  return wgmma_desc(tile + ks * 2048, R * 128, 1024);
+}
+
+// The accumulator element i of an m64nN product in thread (warp, g, t) of
+// its warpgroup: row 16 warp + g + 8 ((i >> 1) & 1), column col64(i, t).
+__device__ __forceinline__ int col64(int i, int t) { return 8 * (i >> 2) + 2 * t + (i & 1); }
+__device__ __forceinline__ int row_half(int i) { return (i >> 1) & 1; }
+
 
 // ------------------------------------------------------- host: tensor maps
 

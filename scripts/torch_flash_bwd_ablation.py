@@ -5,13 +5,13 @@
 
 Builds cluster_anywhere_tpu_torch/ops/csrc/flash_bwd.cu as it is ("source")
 and variants with one part of its Hopper dQ and dK/dV kernels taken out by
-text substitution (each substitution must match the source once, or the
-script stops), one nvcc each, all started together, into
+text substitution (each substitution must match the sources, flash_bwd.cu
+and the headers, once, or the script stops), one nvcc each, all started together, into
 build/torch_flash_bwd_ablation/.  Then it times each variant's dQ and dK/dV
 kernels at the flagship training shape (B 8, T 1024, H 8, D 128, bf16,
 causal), all variants in turn in one loop, with the L2 flushed and the
 host's launch hidden behind a spin kernel before each call, so that every
-median is device time on the same clocks.  The variants other than the
+median is device time on the same clocks (chip_smoke.time_cold_in_turn).  The variants other than the
 source compute wrong gradients by design; the source's are held to the
 plain version (row error, bf16 limit 2e-2) before anything is timed.
 With --against CSRC, the flash_bwd.cu of another checkout's
@@ -41,15 +41,11 @@ from __future__ import annotations
 import ctypes
 import importlib
 import os
-import shutil
-import subprocess
 import sys
-import threading
 
-import numpy as np
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+from torch_flash_ablation_common import (ROOT, build_variants, make_variant, parse_args,
+                                         print_card, start_watchdog)
+from chip_smoke import row_errs, time_cold_in_turn  # the module above puts ROOT on sys.path
 
 KV_BODY = "      if (keys_live && (!p.causal || qt0 + HKV_ROWS > kw0)) {"
 Q_BODY = "      if (qw0 < p.T && (!p.causal || kt0 < qw0 + 64) && kt0 + HQ_KEYS > pad) {"
@@ -155,27 +151,6 @@ VARIANTS = {
 }
 
 
-def make_variant(name, out_root, csrc, against=None):
-    """The variant's sources in out_root/name/, its substitutions applied
-    (for "against", the sources of `against` as they are)."""
-    if name == "against":
-        csrc = against
-    src = open(os.path.join(csrc, "flash_bwd.cu")).read()
-    for old, new in VARIANTS.get(name, []):
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: the substitution of {old.splitlines()[0].strip()!r} "
-                             f"matches {src.count(old)} times in flash_bwd.cu")
-        src = src.replace(old, new)
-    d = os.path.join(out_root, name)
-    os.makedirs(d, exist_ok=True)
-    for f in os.listdir(csrc):
-        if f.endswith(".cuh"):
-            shutil.copy(os.path.join(csrc, f), d)
-    with open(os.path.join(d, "flash_bwd.cu"), "w") as fh:
-        fh.write(src)
-    return d
-
-
 def main(names, against=None) -> int:
     import torch
 
@@ -187,27 +162,14 @@ def main(names, against=None) -> int:
 
     out_root = os.path.join(ROOT, "build", "torch_flash_bwd_ablation")
     names = names + (["against"] if against else [])
-    dirs = {n: make_variant(n, out_root, str(_build.CSRC), against) for n in names}
-    built, errors = {}, {}
-
-    def build(n):
-        so = os.path.join(dirs[n], "libflash_bwd.so")
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                               os.path.join(dirs[n], "flash_bwd.cu")], capture_output=True, text=True)
-        (built if proc.returncode == 0 else errors)[n] = so if proc.returncode == 0 else proc.stderr
-
-    threads = [threading.Thread(target=build, args=(n,)) for n in names]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    if errors:
-        for n, err in errors.items():
-            print(f"{n}: nvcc failed\n{err[-3000:]}", file=sys.stderr)
+    dirs = {n: make_variant(n, out_root, str(_build.CSRC), VARIANTS, "flash_bwd.cu", against)
+            for n in names}
+    libs = build_variants(names, dirs, "flash_bwd.cu")
+    if libs is None:
         return 1
+    watchdog = start_watchdog()
     entries = {}
-    for n, so in built.items():
-        lib = ctypes.CDLL(so)
+    for n, lib in libs.items():
         dq, dkv = lib.flash_bwd_dq, lib.flash_bwd_dkv
         dq.argtypes = attn._BWD_INPUT_ARGTYPES + [ctypes.c_void_p] + attn._BWD_TAIL_ARGTYPES
         dkv.argtypes = attn._BWD_INPUT_ARGTYPES + [ctypes.c_void_p] * 2 + attn._BWD_TAIL_ARGTYPES
@@ -229,10 +191,7 @@ def main(names, against=None) -> int:
         got = (attn.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
                *attn.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
         want = attn._bwd_plain_from_delta(q, k, v, do, lse, delta, **kw)
-        errs = []
-        for g, w in zip(got, want):
-            diff, norm = (g.float() - w.float()).norm(dim=-1), w.float().norm(dim=-1)
-            errs.append((diff / norm.clamp(min=0.1 * norm.square().mean().sqrt().item())).max().item())
+        errs = row_errs(got, want)
         print(f"source: dQ/dK/dV row error {'/'.join(f'{e:.3g}' for e in errs)} (limit 2e-2)")
         if max(errs) > 2e-2:
             print("the source's kernels disagree with the plain version", file=sys.stderr)
@@ -247,40 +206,14 @@ def main(names, against=None) -> int:
                 attn.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
         return call
 
-    fns = {(n, w): kernel(n, w) for n in names for w in ("dq", "dkv")}
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {key: [] for key in fns}
-    for _ in range(31):
-        for key, fn in fns.items():
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)  # the host enqueues the call while the card spins
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            times[key].append(e0.elapsed_time(e1))
+    times = time_cold_in_turn(torch, {(n, w): kernel(n, w) for n in names for w in ("dq", "dkv")})
+    watchdog.cancel()
     print("device ms, median of 31, L2 flushed, B8 T1024 H8 D128 bf16 causal:")
     for n in names:
-        print(f"  {n:12s} dQ {np.median(times[(n, 'dq')]):.4f}  dK/dV {np.median(times[(n, 'dkv')]):.4f}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip())
+        print(f"  {n:12s} dQ {times[(n, 'dq')]:.4f}  dK/dV {times[(n, 'dkv')]:.4f}")
+    print_card()
     return 0
 
 
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    against = None
-    if "--against" in args:
-        i = args.index("--against")
-        against = os.path.abspath(args[i + 1])
-        del args[i:i + 2]
-    chosen = args or list(VARIANTS)
-    unknown = [n for n in chosen if n not in VARIANTS]
-    if unknown:
-        raise SystemExit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-    sys.exit(main(chosen, against))
+    sys.exit(main(*parse_args(sys.argv[1:], VARIANTS)))

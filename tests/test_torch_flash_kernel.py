@@ -115,7 +115,7 @@ def test_flash_kernel_reads_strided_views(cuda):
 # relative, and the kernels round P and dS to bf16 before their products,
 # as FA2 does).
 
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLAGSHIP_T = (1024, 1024, True, False)  # the flagship training step's attention, cut to B 2, H 3
 
 
@@ -128,7 +128,7 @@ def _bwd_inputs(t, t_kv, seed, d, dt, device, padded):
     return q, k, v, pad, do
 
 
-def _bwd_row_errs(got, want):
+def _row_errs(got, want):
     errs = []
     for g, w in zip(got, want):
         diff, norm = (g.float() - w.float()).norm(dim=-1), w.float().norm(dim=-1)
@@ -155,8 +155,8 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, d, t, t_kv, causal, 
     assert (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
     assert dq.dtype == dk.dtype == dv.dtype == dt
     want = tattn._flash_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale, pad=pad, dlse=dlse)
-    errs = _bwd_row_errs((dq, dk, dv), want)
-    assert max(errs) <= BWD_TOL[dt], errs
+    errs = _row_errs((dq, dk, dv), want)
+    assert max(errs) <= ROW_TOL[dt], errs
 
 
 # Shapes that cross the Hopper kernels' tiles (dK/dV: 128-key blocks and
@@ -192,8 +192,8 @@ def test_flash_bwd_kernels_match_plain_on_hopper_tiles(cuda, dtype, b, t, t_kv, 
     assert (tattn.flash_bwd_dq.launches, tattn.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
     assert dq.dtype == dk.dtype == dv.dtype == dt
     want = tattn._flash_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale, pad=pad, dlse=dlse)
-    errs = _bwd_row_errs((dq, dk, dv), want)
-    assert max(errs) <= BWD_TOL[dt], errs
+    errs = _row_errs((dq, dk, dv), want)
+    assert max(errs) <= ROW_TOL[dt], errs
 
 
 @pytest.mark.gpu
@@ -218,8 +218,8 @@ def test_flash_attention_autograd_on_card(cuda, dtype):
     plain = grads(lambda *a: tattn._flash_attention_plain(*a, causal=True, scale=64 ** -0.5, pad=pad))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(kern, again))
-    errs = _bwd_row_errs(kern, plain)
-    assert max(errs) <= BWD_TOL[dt], errs
+    errs = _row_errs(kern, plain)
+    assert max(errs) <= ROW_TOL[dt], errs
 
 
 @pytest.mark.gpu
@@ -282,9 +282,9 @@ def test_bf16_bwd_tolerance_rejects_mis_mapped_keys(d, t, t_kv, causal, padded):
                                     pad=pad)[0]
     bad_kv = tattn._flash_bwd_plain(q, k, v, o, lse, do[:, qs], causal=causal, scale=scale,
                                     pad=pad)[1:]
-    tol = BWD_TOL[torch.bfloat16]
-    assert _bwd_row_errs((bad_dq,), want[:1])[0] > 5 * tol
-    assert min(_bwd_row_errs(bad_kv, want[1:])) > 5 * tol
+    tol = ROW_TOL[torch.bfloat16]
+    assert _row_errs((bad_dq,), want[:1])[0] > 5 * tol
+    assert min(_row_errs(bad_kv, want[1:])) > 5 * tol
 
 
 @pytest.mark.parametrize("fault", ["skipped_tile", "unwritten_tile"])
@@ -299,7 +299,7 @@ def test_bf16_bwd_tolerance_rejects_late_tile_faults(t, t_kv, causal, padded, fa
     the limit."""
     (q, k, v, pad, do, o, lse, scale), want = _plain_bwd_case(t, t_kv, causal, padded, 128)
     bad = _plant_tile_fault(q, k, v, pad, do, o, lse, scale, want, fault, n_rows=32, n_keys=32)
-    assert min(_bwd_row_errs(bad, want)) > 5 * BWD_TOL[torch.bfloat16]
+    assert min(_row_errs(bad, want)) > 5 * ROW_TOL[torch.bfloat16]
 
 
 def _plant_tile_fault(q, k, v, pad, do, o, lse, scale, want, fault, n_rows, n_keys):
@@ -337,4 +337,96 @@ def test_bf16_bwd_tolerance_rejects_lost_hopper_tiles(t, t_kv, causal, padded, f
     64 late rows see 128 earlier keys in full under causal."""
     (q, k, v, pad, do, o, lse, scale), want = _plain_bwd_case(t, t_kv, causal, padded, 128)
     bad = _plant_tile_fault(q, k, v, pad, do, o, lse, scale, want, fault, n_rows=64, n_keys=128)
-    assert min(_bwd_row_errs(bad, want)) > 5 * BWD_TOL[torch.bfloat16]
+    assert min(_row_errs(bad, want)) > 5 * ROW_TOL[torch.bfloat16]
+
+
+# ------------------------------------------------ forward at the Hopper tiles
+#
+# The bf16 forward at D 64 and 128 works on 128-row query blocks (64 rows a
+# consumer warpgroup) and 64-key K/V tiles, skips the key tiles wholly
+# below pad[b] and the query blocks that see no key.  Besides O's largest
+# element error and LSE's, O is held row by row as the backward's gradients
+# are (the row error above, limits ROW_TOL).
+#
+# (B, T, T_kv, H, D, causal, pad of batch row 0): a pad of 150 across the
+# third 64-key tile; ragged 520-row and 520-key edges; a pad of 300 that
+# covers two whole 128-row query blocks (causal: they see no key; not
+# causal: they see the keys past the pad); T 60, where the block's second
+# warpgroup has no rows while the first reads 9 key tiles; the flagship
+# prefill cut to B 2, its shortest prompt (128 live tokens of 512) in row 0;
+# and the flagship training step's attention, whose blocks run the steady
+# loop over up to 16 mask-free tiles.
+FWD_HOPPER_CASES = [
+    (b, t, t_kv, h, d, causal, pad0)
+    for b, t, t_kv, h, causal, pad0 in [(2, 333, 333, 3, True, 150), (2, 96, 520, 3, False, None),
+                                        (2, 520, 96, 3, True, None), (2, 400, 400, 3, True, 300),
+                                        (2, 400, 400, 3, False, 300), (2, 60, 520, 3, False, None)]
+    for d in (64, 128)
+] + [(2, 512, 512, 8, 128, True, 384), (8, 1024, 1024, 8, 128, True, None)]
+
+
+def _fwd_errs(o, lse, po, plse):
+    """(O's largest element error, LSE's on the rows that see a key,
+    whether the fully masked rows hold LSE = -1e30 exactly, O's row
+    error) of the forward (o, lse) against the plain version's."""
+    real = plse > tattn.NEG_INF / 2
+    err_o = (o.float() - po.float()).abs().max().item()
+    err_lse = (lse - plse).abs()[real].max().item() if bool(real.any()) else 0.0
+    masked = bool(torch.all(lse[~real] == tattn.NEG_INF))
+    return err_o, err_lse, masked, _row_errs((o,), (po,))[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,t_kv,h,d,causal,pad0", FWD_HOPPER_CASES)
+def test_flash_kernel_matches_plain_on_hopper_tiles(cuda, dtype, b, t, t_kv, h, d, causal, pad0):
+    """Limits: O and LSE as in TOL, O's row error as in ROW_TOL, fully
+    masked rows at LSE = -1e30 exactly; two calls give the same bits."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a, device=cuda).to(dt) for a in _qkv(t, t_kv, seed=d + t, d=d, b=b, h=h))
+    pad = None if pad0 is None else torch.tensor([pad0] + [0] * (b - 1), device=cuda)
+    before = tattn.flash_attention.launches
+    o, lse = tattn.flash_attention(q, k, v, causal=causal, pad=pad, return_lse=True)
+    o2, lse2 = tattn.flash_attention(q, k, v, causal=causal, pad=pad, return_lse=True)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    po, plse = tattn._flash_attention_plain(q, k, v, causal=causal, scale=d ** -0.5, pad=pad)
+    err_o, err_lse, masked, row = _fwd_errs(o, lse, po, plse)
+    tol_o, tol_lse = TOL[dt]
+    assert err_o <= tol_o and err_lse <= tol_lse and masked and row <= ROW_TOL[dt], (
+        err_o, err_lse, masked, row)
+
+
+@pytest.mark.parametrize("fault", ["skipped_kv_tile", "unwritten_o_tile", "skipped_tile_above_pad"])
+@pytest.mark.parametrize("t,t_kv,causal,padded", CASES + [FLAGSHIP_T])
+def test_bf16_fwd_tolerance_rejects_lost_hopper_tiles(t, t_kv, causal, padded, fault):
+    """Faults of the forward's tile geometry, planted in the plain
+    version's O and LSE on the card's bf16 inputs: the last 64-row
+    warpgroup skipping the 64-key tile that holds the key just before its
+    first row; that warpgroup's 64 O rows left unwritten (zeros); batch row
+    0 skipping the 64-key tile that holds pad[0] (the first tile it loads)
+    as if it lay wholly below the pad.  The limits the card's check uses (O,
+    LSE, masked rows, O's row error) reject each by more than 5x."""
+    d = 128
+    q, k, v = (torch.tensor(a).bfloat16() for a in _qkv(t, t_kv, seed=d, d=d))
+    pad = _pad(t_kv, padded, "cpu")
+    scale = d ** -0.5
+    po, plse = tattn._flash_attention_plain(q, k, v, causal=causal, scale=scale, pad=pad)
+    rb = (t - 1) // 64 * 64  # the last warpgroup's first row
+    s = tattn._masked_scores(q, k, causal=causal, scale=scale, pad=pad)
+    if fault == "skipped_kv_tile":
+        kt0 = max(0, (min(rb, t_kv) - 1) // 64 * 64)
+        s[:, :, rb:, kt0:kt0 + 64] = tattn.NEG_INF
+        bad_o, bad_lse = tattn._plain_from_scores(s, v, q.dtype)
+    elif fault == "unwritten_o_tile":
+        bad_o, bad_lse = po.clone(), plse
+        bad_o[:, rb:rb + 64] = 0
+    else:
+        kt0 = (0 if pad is None else int(pad[0])) // 64 * 64
+        s[0, :, :, kt0:kt0 + 64] = tattn.NEG_INF
+        bad_o, bad_lse = tattn._plain_from_scores(s, v, q.dtype)
+    err_o, err_lse, masked, row = _fwd_errs(bad_o, bad_lse, po, plse)
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert not masked or max(err_o / tol_o, err_lse / tol_lse, row / ROW_TOL[torch.bfloat16]) > 5, (
+        err_o, err_lse, masked, row)
