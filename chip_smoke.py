@@ -32,14 +32,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      kernel group, idle share) after which serving must see the trained
      weights, and one step's loss and gradients against the same step
      with the plain attention.
+  6. the same three cells on the flagship's mixture-of-experts variant
+     (every FFN 4 top-1 experts, capacity factor 1.25, aux weight 0.01,
+     all experts on the card): generate-moe, server-moe and train-moe
+     (device time with routing and dispatch as a group of their own, no
+     MFU: a token visits one expert, so the dense FLOP count misleads).
+     The MoE first tokens and gradients are compared with the plain
+     attention twice: with each run routing on its own (the share of
+     routes that agree is printed) and with the plain run's routes pinned
+     to the kernel run's, which is held to the dense limits.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
-path) and read just after: serving launches no backward kernel, and every
-training step launches 8 of each kernel.  Prints a `kernels` JSON line, the
-card's name and power limit, and as its last line {"ok": true, "device": {...}}.
+path) and read just after, and again around each MoE cell: serving
+launches no backward kernel, and every training step launches 8 of each
+kernel.  Prints a `kernels` JSON line (launches summed over all cells),
+the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -78,6 +91,46 @@ def flagship():
     from cluster_anywhere_tpu_torch.entry import flagship_cfg
 
     return flagship_cfg()
+
+
+def moe_flagship():
+    """The flagship with every FFN 4 top-1 switch experts, as bench.py's
+    MoE step (bench.py:401-404), at the full 8 layers and ep = 1."""
+    return dataclasses.replace(flagship(), n_experts=4, capacity_factor=1.25, moe_aux_weight=0.01)
+
+
+@contextlib.contextmanager
+def moe_routes(log, pin=False):
+    """Inside, every top-1 MoE route (training's moe_ffn and serving's
+    _moe_infer) appends its expert indices to `log`; with pin, the routes
+    are instead taken in turn from `log`, the gates from the run's own
+    probabilities at those experts."""
+    from cluster_anywhere_tpu_torch.models import generate as gen_mod
+    from cluster_anywhere_tpu_torch.parallel import moe as moe_mod
+
+    real = moe_mod.top1_route
+    replay = iter(list(log))
+
+    def route(logits):
+        probs, idx, gate = real(logits)
+        if pin:
+            idx = next(replay)
+            gate = probs.gather(-1, idx[..., None])[..., 0]
+        else:
+            log.append(idx)
+        return probs, idx, gate
+
+    moe_mod.top1_route = gen_mod.top1_route = route
+    try:
+        yield
+    finally:
+        moe_mod.top1_route = gen_mod.top1_route = real
+
+
+def route_agreement(a, b):
+    """The share of tokens routed to the same expert in two route logs."""
+    same = sum(int((x == y).sum().item()) for x, y in zip(a, b))
+    return same / max(1, sum(x.numel() for x in a))
 
 
 def flagship_prefill_inputs(torch, gen):
@@ -516,11 +569,13 @@ def phase_bwd_timing(torch, attn, gen):
 # ----------------------------------------------------------------- phases 3-4
 
 
-def phase_generate(torch):
-    from cluster_anywhere_tpu_torch.models.generate import generate, prefill
+def phase_generate(torch, cfg):
+    """The generate cell's model and prompts, the prefill timed (3 calls,
+    host clock) and then profiled beside 8 decode steps (device time by
+    kernel group and idle share), outside the launch counts."""
+    from cluster_anywhere_tpu_torch.models.generate import decode_one, generate, prefill
     from cluster_anywhere_tpu_torch.models.transformer import init_params
 
-    cfg = flagship()
     model = init_params(cfg, 0, device="cuda")
     lens = prompt_lens()
     rng = np.random.default_rng(0)
@@ -529,17 +584,33 @@ def phase_generate(torch):
         ids[i, : T - n] = 0
     ids_t, lens_t = torch.from_numpy(ids).cuda(), torch.from_numpy(lens).cuda()
     generate(model, ids_t, cfg=cfg, max_new_tokens=2, prompt_lens=lens_t)  # warm-up
+    pad = T - lens_t
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            prefill(model, ids_t, cfg, T + N_NEW, pad=T - lens_t)
+            _, cache = prefill(model, ids_t, cfg, T + N_NEW, pad=pad)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+        positions = iter(range(T, T + N_NEW))
+
+        def decode():
+            decode_one(model, cache, ids_t[:, -1], next(positions), cfg, pad)
+
+        t0 = time.perf_counter()
+        for _ in range(8):
+            decode()
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / 8 * 1e3
+        tag = "generate-moe" if cfg.n_experts else "generate"
+        groups = MOE_KERNEL_GROUPS if cfg.n_experts else KERNEL_GROUPS
+        profile_steps(torch, lambda: prefill(model, ids_t, cfg, T + N_NEW, pad=pad), prefill_ms,
+                      tag, groups, what="prefills")
+        profile_steps(torch, decode, decode_ms, tag, groups, n=8, what="decode steps")
     return cfg, model, ids_t, lens_t, prefill_ms
 
 
-def run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms):
+def run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms, tag="generate"):
     from cluster_anywhere_tpu_torch.models.generate import generate
 
     before = attn.flash_attention.launches
@@ -553,7 +624,7 @@ def run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms):
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generated ids out of the vocab")
     check(launches == cfg.n_layers, f"generate launched flash_fwd {launches} times, want {cfg.n_layers}")
     decode_tok_s = B * (N_NEW - 1) / max((total_ms - prefill_ms) / 1e3, 1e-9)
-    log(f"[generate] flagship B{B} prompts {T} (real {prompt_lens().tolist()}) +{N_NEW} greedy: "
+    log(f"[{tag}] flagship B{B} prompts {T} (real {prompt_lens().tolist()}) +{N_NEW} greedy: "
         f"prefill {prefill_ms:.2f} ms, total {total_ms:.2f} ms, decode {decode_tok_s:.1f} tok/s, "
         f"flash_fwd launches {launches}")
     return out
@@ -570,42 +641,77 @@ def plain_attention(attn):
     return plain
 
 
-def compare_with_plain_attention(torch, attn, cfg, model, ids_t, lens_t, out):
-    """The same generate with the attention forced to the plain version."""
+# generate-moe's first tokens, the plain run's routes pinned to the kernel
+# run's: the two runs' prefill logits differ by bf16 rounding alone (on an
+# H100: at most 0.047, and 0.066 in the dense cell), and a wrong kernel
+# moves them by O(1).  A row whose plain top-2 gap is within twice the
+# measured difference is a near-tie that either run may break its own way
+# (the seed-0 MoE flagship has an exact tie, gap 0.0, and one of 0.03);
+# every other row's first token must be equal.
+MOE_FIRST_LOGIT_TOL = 0.125
+
+
+def compare_with_plain_attention(torch, attn, cfg, model, ids_t, lens_t, out, tag="generate"):
+    """The same generate with the attention forced to the plain version.
+    For an MoE model the first tokens are held with the plain run's routes
+    pinned to the kernel run's (MOE_FIRST_LOGIT_TOL), and compared
+    unpinned beside them."""
     from cluster_anywhere_tpu_torch.models.generate import generate, prefill
 
     kernel = attn.flash_attention
-
+    routes_k, routes_p = [], []
     plain = plain_attention(attn)
     with torch.no_grad():
-        logits_k, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
+        with moe_routes(routes_k):
+            logits_k, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
         attn.flash_attention = plain
         try:
             ref = generate(model, ids_t, cfg=cfg, max_new_tokens=N_NEW, prompt_lens=lens_t)
-            logits_p, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
+            with moe_routes(routes_p):
+                logits_p, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
+            if cfg.n_experts:
+                with moe_routes(routes_k, pin=True):
+                    logits_pinned, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
         finally:
             attn.flash_attention = kernel
     top2 = logits_p.topk(2, dim=-1).values
-    log(f"[generate] first-token logits, kernel vs plain attention: max |diff| "
+    log(f"[{tag}] first-token logits, kernel vs plain attention: max |diff| "
         f"{(logits_k - logits_p).abs().max().item():.4g}; plain top-2 gap per row "
         f"{[round(g, 4) for g in (top2[:, 0] - top2[:, 1]).tolist()]}")
-    check(torch.equal(out[:, 0], ref[:, 0]),
-          f"first tokens differ from the plain attention: {out[:, 0].tolist()} vs {ref[:, 0].tolist()}")
+    first_ref, decided = ref[:, 0], torch.ones(B, dtype=torch.bool, device=out.device)
+    if cfg.n_experts:
+        unpinned = logits_p.argmax(dim=-1)
+        diff = (logits_k - logits_pinned).abs().max().item()
+        top2 = logits_pinned.topk(2, dim=-1).values
+        decided = top2[:, 0] - top2[:, 1] > 2 * diff
+        first_ref = logits_pinned.argmax(dim=-1).to(out.dtype)
+        log(f"[{tag}] prefill routes agreeing, kernel vs plain attention: "
+            f"{route_agreement(routes_k, routes_p):.6f} of {sum(r.numel() for r in routes_k)}; "
+            f"first tokens equal unpinned: {(unpinned == out[:, 0]).sum().item()} of {B}; "
+            f"the plain run's routes pinned to the kernel run's: max |diff| {diff:.4g} (limit "
+            f"{MOE_FIRST_LOGIT_TOL}), top-2 gap per row "
+            f"{[round(g, 4) for g in (top2[:, 0] - top2[:, 1]).tolist()]}, first tokens equal "
+            f"{(first_ref == out[:, 0]).sum().item()} of {B}, near-ties {(~decided).sum().item()}")
+        check(diff <= MOE_FIRST_LOGIT_TOL,
+              f"prefill logits with the kernels differ from the plain attention by {diff}")
+    check(torch.equal(out[decided, 0], first_ref[decided]),
+          f"first tokens differ from the plain attention: {out[:, 0].tolist()} vs {first_ref.tolist()}")
     rate = (out[:, 1:] == ref[:, 1:]).float().mean().item()
-    log(f"[generate] vs plain attention: first tokens equal, later tokens match rate {rate:.4f} "
-        f"(bf16 may flip near-ties, after which a row's continuation diverges)")
+    pinned = " (routes pinned)" if cfg.n_experts else ""
+    log(f"[{tag}] vs plain attention: first tokens equal{pinned}, later tokens match rate "
+        f"{rate:.4f} (bf16 may flip near-ties, after which a row's continuation diverges)")
 
 
-def phase_server(torch, attn):
+def phase_server(torch, attn, cfg, tag="server"):
     from cluster_anywhere_tpu_torch.llm import ContinuousLLMServer, ModelSpec, ProcessorConfig
 
-    fl = flagship()
-    overrides = {f: getattr(fl, f) for f in ("d_model", "n_layers", "n_heads", "n_kv_heads",
-                                             "d_head", "d_ff", "max_seq_len", "dtype")}
-    cfg = ProcessorConfig(model=ModelSpec(preset="custom", config_overrides=overrides),
-                          max_prompt_len=T, max_new_tokens=N_NEW, prefix_cache_entries=8)
+    overrides = {f: getattr(cfg, f) for f in ("d_model", "n_layers", "n_heads", "n_kv_heads",
+                                              "d_head", "d_ff", "max_seq_len", "dtype",
+                                              "n_experts")}
+    pcfg = ProcessorConfig(model=ModelSpec(preset="custom", config_overrides=overrides),
+                           max_prompt_len=T, max_new_tokens=N_NEW, prefix_cache_entries=8)
     before = attn.flash_attention.launches
-    srv = ContinuousLLMServer(cfg, slots=8, device="cuda")
+    srv = ContinuousLLMServer(pcfg, slots=8, device="cuda")
     try:
         system = ("You are the operations assistant of a cluster that schedules tasks, actors "
                   "and placement groups over many nodes. Answer in one short paragraph, name the "
@@ -639,13 +745,14 @@ def phase_server(torch, attn):
         check(not errors, f"server requests failed: {errors}")
         n_tok = [len(t) for t in tokens]
         check(all(n == N_NEW for n in n_tok), f"requests answered {n_tok} tokens, want {N_NEW}")
+        check(srv.cb.cfg.n_experts == cfg.n_experts, f"the server runs {srv.cb.cfg}")
         stats = dict(srv.cb.stats)
         check(stats["prefix_hits"] >= 1, f"no prefix-cache hit: {stats}")
         srv.check_health()
         launches = attn.flash_attention.launches - before
         check(launches >= 1, "the server never launched flash_fwd")
         prompt_len = len(srv.tok.encode(system + users[0]))
-        log(f"[server] 8 concurrent requests, prompts {prompt_len} tokens sharing a "
+        log(f"[{tag}] 8 concurrent requests, prompts {prompt_len} tokens sharing a "
             f"{len(system)}-byte system prefix, {N_NEW} tokens each: TTFT p50 "
             f"{np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms; "
             f"{sum(n_tok) / wall:.1f} tok/s over {wall:.2f} s; stats {stats}; "
@@ -679,12 +786,18 @@ def launch_counts(attn):
             attn.flash_bwd_dkv.launches)
 
 
+def zero_launch_counts(attn):
+    attn.flash_attention.launches = attn.flash_bwd_dq.launches = attn.flash_bwd_dkv.launches = 0
+
+
+def check_serving_launches(tag, counts):
+    check(counts[0] > 0 and counts[1:] == (0, 0),
+          f"{tag} launched (fwd, dQ, dK/dV) {counts}: want the forward only")
+
+
 def phase_train(torch, attn):
-    """make_train_step at the flagship on a fixed batch: 1 warm-up step,
-    then TRAIN_STEPS timed steps; every step launches each kernel once per
-    layer."""
+    """entry()'s forward step, then the flagship's training cell."""
     from cluster_anywhere_tpu_torch.entry import entry
-    from cluster_anywhere_tpu_torch.models import make_train_step
 
     fn, args = entry()  # the forward step at ids (4, 1024), as __graft_entry__.entry
     logits = fn(*args)
@@ -692,8 +805,15 @@ def phase_train(torch, attn):
           f"entry() forward gave {tuple(logits.shape)} {logits.dtype}, or non-finite logits")
     log(f"[entry] forward step on ids (4, 1024): logits {tuple(logits.shape)} {logits.dtype}, finite")
     del fn, args, logits
+    train_cell(torch, attn, flagship())
 
-    cfg = flagship()
+
+def train_cell(torch, attn, cfg, tag="train"):
+    """make_train_step on a fixed batch: 1 warm-up step, then TRAIN_STEPS
+    timed steps and 3 profiled; every step launches each kernel once per
+    layer.  MFU only for the dense model (bench.py:387-390)."""
+    from cluster_anywhere_tpu_torch.models import make_train_step
+
     step, init_state = make_train_step(cfg)
     model, opt = init_state(0)
     batch = train_batch(torch, cfg)
@@ -716,14 +836,18 @@ def phase_train(torch, attn):
     step_s = (time.perf_counter() - t0) / TRAIN_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
-    flops = model_flops_per_step(cfg, TRAIN_B, TRAIN_T, causal_discount=True)
     tok_s = TRAIN_B * TRAIN_T / step_s
-    mfu = flops / step_s / BF16_FLOPS
-    log(f"[train] flagship B{TRAIN_B} T{TRAIN_T}, AdamW lr 3e-4: step {step_s * 1e3:.2f} ms "
-        f"(host clock over {TRAIN_STEPS} steps ending in synchronize), {tok_s:.0f} tok/s, "
-        f"MFU {mfu * 100:.2f}% of 989 TFLOP/s ({flops / 1e12:.2f} TFLOP/step, causal-discounted), "
-        f"peak memory {peak_gb:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
-        f"{len(losses)} steps; launches per step (fwd, dQ, dK/dV) {sorted(set(per_step))}")
+    mfu = ""
+    if not cfg.n_experts:
+        flops = model_flops_per_step(cfg, TRAIN_B, TRAIN_T, causal_discount=True)
+        mfu = (f"MFU {flops / step_s / BF16_FLOPS * 100:.2f}% of 989 TFLOP/s "
+               f"({flops / 1e12:.2f} TFLOP/step, causal-discounted), ")
+    log(f"[{tag}] flagship{f' {cfg.n_experts} experts top-1' if cfg.n_experts else ''} "
+        f"B{TRAIN_B} T{TRAIN_T}, AdamW lr 3e-4: step {step_s * 1e3:.2f} ms "
+        f"(host clock over {TRAIN_STEPS} steps ending in synchronize), {tok_s:.0f} tok/s, {mfu}"
+        f"peak memory {peak_gb:.2f} GB; loss over {len(losses)} steps "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step (fwd, dQ, dK/dV) "
+        f"{sorted(set(per_step))}")
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall from step 1 to step {len(losses)}: {losses}")
     check(all(c == want for c in per_step),
@@ -731,10 +855,11 @@ def phase_train(torch, attn):
     # the serving copy (cast here, after the peak memory is read) follows
     # the profiled steps of the card's (multi-tensor) AdamW
     served = model.compute_weights()["blocks"][0]["wq"].clone()
-    profile_steps(torch, lambda: step(model, opt, batch), step_s * 1e3)
+    profile_steps(torch, lambda: step(model, opt, batch), step_s * 1e3, tag,
+                  MOE_KERNEL_GROUPS if cfg.n_experts else KERNEL_GROUPS)
     now = model.compute_weights()["blocks"][0]["wq"]
     fresh = torch.equal(now, model.blocks[0].wq.detach().to(cfg.dtype))
-    log(f"[train] serving weights after the profiled steps are the trained ones: {fresh}")
+    log(f"[{tag}] serving weights after the profiled steps are the trained ones: {fresh}")
     check(fresh and not torch.equal(now, served),
           "compute_weights serves weights from before the optimizer steps")
 
@@ -745,9 +870,17 @@ KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes), first mat
     ("AdamW (multi_tensor_apply)", ("multi_tensor", "adam")),
     ("other (elementwise, reductions, copies)", ("",)),
 )
+# the MoE step's router softmax, top-1 argmax, queue cumsum, slot copy and
+# gathers, and their backward (the one-hot's comparison and the gate's
+# products are elementwise, in "other"); the expert products are cuBLAS
+# matmuls.  The cross-entropy's gather of the gold logits falls here too.
+MOE_KERNEL_GROUPS = KERNEL_GROUPS[:3] + (
+    ("MoE routing and dispatch", ("softmax", "argmax", "scan", "cumsum", "index_copy",
+                                  "indexselect", "indexfunc", "scatter", "gather")),
+) + KERNEL_GROUPS[3:]
 
 
-def profile_steps(torch, fn, step_ms, n=3):
+def profile_steps(torch, fn, step_ms, tag, kernel_groups, n=3, what="training steps"):
     """Device time of n steps by kernel group, from torch.profiler.  The
     idle share is read two ways: the unprofiled step (`step_ms`, host clock)
     less the kernels' busy time, and the gaps on the device timeline of the
@@ -776,17 +909,17 @@ def profile_steps(torch, fn, step_ms, n=3):
         covered += max(0.0, b - max(a, reach))
         reach = max(reach, b)
     window = reach - spans[0][0]
-    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups = {g: 0.0 for g, _ in kernel_groups}
     for e in kernels:
         name = e.key.lower()
-        group = next(g for g, keys in KERNEL_GROUPS if any(k in name for k in keys))
+        group = next(g for g, keys in kernel_groups if any(k in name for k in keys))
         groups[group] += e.self_device_time_total / 1e3 / n
-    log(f"[profile] {n} training steps: device busy {busy_ms:.2f} ms a step; idle share of the "
+    log(f"[profile] {tag}, {n} {what}: device busy {busy_ms:.2f} ms a step; idle share of the "
         f"unprofiled step ({step_ms:.2f} ms) {max(0.0, 1 - busy_ms / step_ms) * 100:.1f}%; gaps on "
         f"the device timeline of the profiled steps {(1 - covered / window) * 100:.1f}% of "
         f"{window / 1e3 / n:.2f} ms a step; device ms a step by group: "
         + "; ".join(f"{g} {ms:.2f}" for g, ms in groups.items()))
-    ours = [e for e in kernels if any(k in e.key.lower() for k in KERNEL_GROUPS[0][1])]
+    ours = [e for e in kernels if any(k in e.key.lower() for k in kernel_groups[0][1])]
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12] + ours:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms/step  "
             f"{e.count / n:5.0f} launches/step  {e.key[:110]}")
@@ -802,42 +935,58 @@ def profile_steps(torch, fn, step_ms, n=3):
 TRAIN_GRAD_TOL = dict(loss_rel=1e-3, grad_rel_l2=5e-2)
 
 
-def compare_train_with_plain_attention(torch, attn):
-    """The same loss and gradients on a fresh flagship with the attention
-    forced to the plain version (autograd through _flash_attention_plain)."""
+def compare_train_with_plain_attention(torch, attn, cfg, tag="train"):
+    """The same loss and gradients on a fresh model of `cfg` with the
+    attention forced to the plain version (autograd through
+    _flash_attention_plain).  For an MoE model the plain run's routes are
+    pinned to the kernel run's for the check, and a plain run routing on
+    its own is compared beside it (the share of routes that agree)."""
     from cluster_anywhere_tpu_torch.models import init_params, make_loss_fn
 
-    cfg = flagship()
     model = init_params(cfg, 1, device="cuda")
     params = list(model.parameters())
     names = [n for n, _ in model.named_parameters()]
     loss_fn = make_loss_fn(cfg)
     batch = train_batch(torch, cfg)
     kernel = attn.flash_attention
+    routes_k, routes_p = [], []
 
-    plain = plain_attention(attn)
-    loss_k = loss_fn(model, batch)
-    grads_k = torch.autograd.grad(loss_k, params)
-    attn.flash_attention = plain
+    def loss_and_grads(routes, pin=False):
+        with moe_routes(routes, pin):
+            loss = loss_fn(model, batch)
+            return loss, torch.autograd.grad(loss, params)
+
+    def compare(what, loss_k, grads_k, loss_p, grads_p):
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        worst_rel, worst_cos = (0.0, ""), (1.0, "")
+        for name, gk, gp in zip(names, grads_k, grads_p):
+            gk, gp = gk.double(), gp.double()
+            rel = ((gk - gp).norm() / gp.norm()).item()
+            cos = (gk.flatten() @ gp.flatten() / (gk.norm() * gp.norm())).item()
+            worst_rel = max(worst_rel, (rel, name))
+            worst_cos = min(worst_cos, (cos, name))
+        log(f"[{tag}] one step, kernels vs plain attention{what}: loss {loss_k.item():.6f} vs "
+            f"{loss_p.item():.6f} (relative {loss_rel:.3g}); worst per-parameter gradient relative "
+            f"L2 error {worst_rel[0]:.4g} ({worst_rel[1]}), lowest cosine {worst_cos[0]:.6f} "
+            f"({worst_cos[1]}); tolerances {TRAIN_GRAD_TOL}")
+        return loss_rel <= TRAIN_GRAD_TOL["loss_rel"] and worst_rel[0] <= TRAIN_GRAD_TOL["grad_rel_l2"]
+
+    loss_k, grads_k = loss_and_grads(routes_k)
+    attn.flash_attention = plain_attention(attn)
     try:
-        loss_p = loss_fn(model, batch)
-        grads_p = torch.autograd.grad(loss_p, params)
+        loss_p, grads_p = loss_and_grads(routes_p)
+        if cfg.n_experts:
+            pinned = loss_and_grads(routes_k, pin=True)
     finally:
         attn.flash_attention = kernel
-    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    worst_rel, worst_cos = (0.0, ""), (1.0, "")
-    for name, gk, gp in zip(names, grads_k, grads_p):
-        gk, gp = gk.double(), gp.double()
-        rel = ((gk - gp).norm() / gp.norm()).item()
-        cos = (gk.flatten() @ gp.flatten() / (gk.norm() * gp.norm())).item()
-        worst_rel = max(worst_rel, (rel, name))
-        worst_cos = min(worst_cos, (cos, name))
-    log(f"[train] one step, kernels vs plain attention: loss {loss_k.item():.6f} vs "
-        f"{loss_p.item():.6f} (relative {loss_rel:.3g}); worst per-parameter gradient relative "
-        f"L2 error {worst_rel[0]:.4g} ({worst_rel[1]}), lowest cosine {worst_cos[0]:.6f} "
-        f"({worst_cos[1]}); tolerances {TRAIN_GRAD_TOL}")
-    check(loss_rel <= TRAIN_GRAD_TOL["loss_rel"] and worst_rel[0] <= TRAIN_GRAD_TOL["grad_rel_l2"],
-          "training gradients with the kernels disagree with the plain attention")
+    ok = compare("", loss_k, grads_k, loss_p, grads_p)
+    if cfg.n_experts:
+        log(f"[{tag}] routes agreeing, kernel vs plain attention: "
+            f"{route_agreement(routes_k, routes_p):.6f} of {sum(r.numel() for r in routes_k)} "
+            f"(the comparison above; held below, routes pinned)")
+        ok = compare(", the plain run's routes pinned to the kernel run's", loss_k, grads_k,
+                     *pinned)
+    check(ok, "training gradients with the kernels disagree with the plain attention")
 
 
 def main() -> int:
@@ -863,22 +1012,43 @@ def main() -> int:
     fwd_timing = phase_kernel_timing(torch, attn, gen)
     dq_timing, dkv_timing = phase_bwd_timing(torch, attn, gen)
     log(f"[clocks] clocks.sm, clocks.max.sm after the timing phases: {gpu_clocks()}")
-    cfg, model, ids_t, lens_t, prefill_ms = phase_generate(torch)
+    cfg, model, ids_t, lens_t, prefill_ms = phase_generate(torch, flagship())
 
     # the main path starts here
-    attn.flash_attention.launches = attn.flash_bwd_dq.launches = attn.flash_bwd_dkv.launches = 0
+    zero_launch_counts(attn)
     out = run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms)
-    phase_server(torch, attn)
+    phase_server(torch, attn, cfg)
     serving = launch_counts(attn)
     phase_train(torch, attn)
     launches = launch_counts(attn)  # ... and ends here
     log(f"[main path] launches (fwd, dQ, dK/dV): serving {serving}, in all {launches}")
-    check(serving[0] > 0 and serving[1:] == (0, 0),
-          f"serving launched (fwd, dQ, dK/dV) {serving}: want the forward only")
+    check_serving_launches("serving", serving)
     check(all(n > 0 for n in launches), f"a kernel was not launched on the main path: {launches}")
 
+    # the MoE cells, each read between zeroed counts
+    moe = moe_flagship()
+    mcfg, mmodel, _, _, mprefill_ms = phase_generate(torch, moe)
+    zero_launch_counts(attn)
+    mout = run_generate(torch, attn, mcfg, mmodel, ids_t, lens_t, mprefill_ms, "generate-moe")
+    counts = {"generate-moe": launch_counts(attn)}
+    zero_launch_counts(attn)
+    phase_server(torch, attn, moe, "server-moe")
+    counts["server-moe"] = launch_counts(attn)
+    zero_launch_counts(attn)
+    train_cell(torch, attn, moe, "train-moe")
+    counts["train-moe"] = launch_counts(attn)
+    log(f"[moe paths] launches (fwd, dQ, dK/dV): {counts}")
+    for tag in ("generate-moe", "server-moe"):
+        check_serving_launches(tag, counts[tag])
+    check(all(n > 0 for n in counts["train-moe"]),
+          f"a kernel was not launched on the train-moe path: {counts['train-moe']}")
+    launches = tuple(map(sum, zip(launches, *counts.values())))
+
     compare_with_plain_attention(torch, attn, cfg, model, ids_t, lens_t, out)
-    compare_train_with_plain_attention(torch, attn)
+    compare_with_plain_attention(torch, attn, mcfg, mmodel, ids_t, lens_t, mout, "generate-moe")
+    del model, mmodel
+    compare_train_with_plain_attention(torch, attn, flagship())
+    compare_train_with_plain_attention(torch, attn, moe, "train-moe")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -2,8 +2,9 @@
 
 The JAX tree (cluster_anywhere_tpu/models/transformer.py::init_params) is
 {"embed", "blocks": {name: [L, ...]}, "ln_f", "lm_head"} with blocks
-stacked on a leading layer axis; both packages keep the [in, out] layout,
-so the arrays move over unchanged.
+stacked on a leading layer axis (a MoE config's blocks hold router, w_in
+and w_out in place of w_gate, w_up and w_down); both packages keep the
+[in, out] layout, so the arrays move over unchanged.
 """
 
 from __future__ import annotations
@@ -14,16 +15,17 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .transformer import BLOCK_KEYS, TransformerConfig, TransformerLM
+from .transformer import TransformerConfig, TransformerLM
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: TransformerConfig, device=None) -> TransformerLM:
     """A TransformerLM holding the JAX package's params, given as numpy
     arrays (or anything np.asarray takes) with blocks stacked [L, ...]."""
-    if "router" in tree["blocks"]:
-        raise NotImplementedError("MoE params (router/w_in/w_out) are not ported yet")
     dev = resolve_device(device)
     model = TransformerLM(cfg, dev)
+    if set(tree["blocks"]) != set(model.block_keys):
+        raise ValueError(f"block params {sorted(tree['blocks'])} do not fit the config, which "
+                         f"holds {sorted(model.block_keys)}")
 
     def put(param, arr):
         arr = np.asarray(arr)
@@ -36,7 +38,7 @@ def from_jax_params(tree: Dict[str, Any], cfg: TransformerConfig, device=None) -
         put(model.ln_f, tree["ln_f"])
         put(model.lm_head, tree["lm_head"])
         for i, blk in enumerate(model.blocks):
-            for name in BLOCK_KEYS:
+            for name in model.block_keys:
                 put(getattr(blk, name), np.asarray(tree["blocks"][name])[i])
     return model
 
@@ -50,7 +52,7 @@ def to_jax_params(model: TransformerLM) -> Dict[str, Any]:
     return {
         "embed": host(model.embed),
         "blocks": {
-            n: np.stack([host(getattr(blk, n)) for blk in model.blocks]) for n in BLOCK_KEYS
+            n: np.stack([host(getattr(blk, n)) for blk in model.blocks]) for n in model.block_keys
         },
         "ln_f": host(model.ln_f),
         "lm_head": host(model.lm_head),

@@ -19,17 +19,56 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, attention
+from ..parallel.moe import top1_route
 from .transformer import (
     TransformerConfig,
     TransformerLM,
     _gqa_repeat,
-    _mlp,
     _project_qkv,
     _rms_norm,
     _rope,
+    _swiglu,
 )
+
+
+def _mlp(bp, x, cfg: TransformerConfig):
+    """The FFN with its residual: dense SwiGLU, or with n_experts > 0 the
+    serving MoE (_moe_infer), which drops no token."""
+    y = _rms_norm(x, bp["ln2"])
+    return x + (_moe_infer(bp, y, cfg) if cfg.n_experts else _swiglu(bp, y))
+
+
+_MOE_CHUNK = 64  # prefill tokens per all-experts pass (bounds [X, B * chunk, F])
+
+
+def _moe_infer(bp, y, cfg: TransformerConfig):
+    """The MoE FFN delta for serving, y: [B, T, E] -> [B, T, E].  Every
+    expert is computed and masked by the top-1 route: nothing is dropped
+    (capacity binds only in training).  The router's logits are cast to
+    fp32 before the softmax, as in the JAX package's serving path (its
+    training path stays in the activation dtype).  Prefill runs in chunks of
+    _MOE_CHUNK tokens along T, so the all-experts intermediate stays
+    bounded; each token's result does not depend on its chunk."""
+    n_experts = bp["w_in"].shape[0]
+
+    def dense_pass(y_c):  # [B, c, E] -> [B, c, E]
+        b, c, e = y_c.shape
+        _, idx, gate = top1_route((y_c @ bp["router"]).float())  # [B, c]
+        flat = y_c.reshape(1, b * c, e)
+        h = F.silu(flat @ bp["w_in"])  # [X, B * c, F]
+        out_x = (h @ bp["w_out"]).reshape(n_experts, b, c, e)
+        # the route's expert times its gate: the JAX package's one-hot einsum
+        # over the experts, whose other terms are exact zeros
+        picked = torch.take_along_dim(out_x, idx[None, :, :, None], dim=0)[0]
+        return picked * gate[..., None].to(y_c.dtype)
+
+    t = y.shape[1]
+    if t <= _MOE_CHUNK:
+        return dense_pass(y)
+    return torch.cat([dense_pass(y[:, s:s + _MOE_CHUNK]) for s in range(0, t, _MOE_CHUNK)], dim=1)
 
 
 def _masked_attention(q, k_cache, v_cache, valid_len, cfg: TransformerConfig, pad=None):

@@ -9,8 +9,9 @@ activation dtype at its use, through autograd, as the JAX forward does;
 the serving path uses a copy cast once per weight update
 (`TransformerLM.compute_weights`), which equals that cast because the
 cast is deterministic.  Training runs on one device with AdamW
-(`make_train_step`); pipeline/sequence/expert parallelism, remat and MoE
-are later slices.
+(`make_train_step`).  With n_experts > 0 every block's FFN is a top-1
+mixture of experts (parallel/moe.py) with all experts on this device
+(ep = 1); pipeline/sequence/expert parallelism and remat are later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops.attention import attention
+from ..parallel.moe import init_moe_params, moe_ffn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -51,44 +53,58 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
-    n_experts: int = 0  # MoE serving is not ported: > 0 raises
+    # mixture-of-experts FFN (parallel/moe.py, switch-style top-1): every
+    # block's dense FFN becomes n_experts experts.  0 = dense.
+    n_experts: int = 0
+    ep: int = 1  # expert-parallel devices: only 1 is ported
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_torch_dtype(self.dtype))
         object.__setattr__(self, "param_dtype", as_torch_dtype(self.param_dtype))
-        if self.n_experts:
-            raise NotImplementedError("MoE serving (n_experts > 0) is not ported yet")
+        if self.ep != 1:
+            raise NotImplementedError(
+                f"expert parallelism ep={self.ep} is not ported: the all_to_all exchange over a "
+                "process group comes with the parallel-stack slice; use ep=1 (all experts on "
+                "one device)")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} not a multiple of n_kv_heads {self.n_kv_heads}")
 
 
-_BLOCK_SHAPES = {
-    "ln1": lambda c: (c.d_model,),
-    "wq": lambda c: (c.d_model, c.n_heads * c.d_head),
-    "wk": lambda c: (c.d_model, c.n_kv_heads * c.d_head),
-    "wv": lambda c: (c.d_model, c.n_kv_heads * c.d_head),
-    "wo": lambda c: (c.n_heads * c.d_head, c.d_model),
-    "ln2": lambda c: (c.d_model,),
-    "w_gate": lambda c: (c.d_model, c.d_ff),
-    "w_up": lambda c: (c.d_model, c.d_ff),
-    "w_down": lambda c: (c.d_ff, c.d_model),
-}
-BLOCK_KEYS = tuple(_BLOCK_SHAPES)
+def block_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    """Each block weight's name and shape, in the JAX package's order: the
+    attention weights and norms, then the dense SwiGLU (w_gate, w_up,
+    w_down) or, with n_experts > 0, the router and the experts."""
+    e, f, x = cfg.d_model, cfg.d_ff, cfg.n_experts
+    shapes = {
+        "ln1": (e,),
+        "wq": (e, cfg.n_heads * cfg.d_head),
+        "wk": (e, cfg.n_kv_heads * cfg.d_head),
+        "wv": (e, cfg.n_kv_heads * cfg.d_head),
+        "wo": (cfg.n_heads * cfg.d_head, e),
+        "ln2": (e,),
+    }
+    if x:
+        shapes.update(router=(e, x), w_in=(x, e, f), w_out=(x, f, e))
+    else:
+        shapes.update(w_gate=(e, f), w_up=(e, f), w_down=(f, e))
+    return shapes
 
 
 class TransformerBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
-        for name, shape in _BLOCK_SHAPES.items():
+        for name, shape in block_shapes(cfg).items():
             self.register_parameter(
                 name,
-                nn.Parameter(torch.empty(shape(cfg), dtype=cfg.param_dtype, device=device)),
+                nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device)),
             )
 
 
 class TransformerLM(nn.Module):
-    """Holds the weights: embed [V, E], blocks[i].{ln1, wq, wk, wv, wo, ln2,
-    w_gate, w_up, w_down}, ln_f [E], lm_head [E, V]."""
+    """Holds the weights: embed [V, E], blocks[i].{block_keys}, ln_f [E],
+    lm_head [E, V]; block_keys are block_shapes(cfg)'s names."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -105,6 +121,7 @@ class TransformerLM(nn.Module):
         self.lm_head = param(cfg.d_model, cfg.vocab_size)
         self._compute: Optional[Dict[str, Any]] = None
         self._compute_key: Optional[Tuple[int, ...]] = None
+        self.block_keys = tuple(block_shapes(cfg))
 
     @property
     def device(self) -> torch.device:
@@ -123,7 +140,8 @@ class TransformerLM(nn.Module):
             self._compute = {
                 "embed": self.embed.detach().to(dt),
                 "blocks": [
-                    {n: getattr(blk, n).detach().to(dt) for n in BLOCK_KEYS} for blk in self.blocks
+                    {n: getattr(blk, n).detach().to(dt) for n in self.block_keys}
+                    for blk in self.blocks
                 ],
                 "ln_f": self.ln_f.detach().to(dt),
                 "lm_head": self.lm_head.detach().to(dt),
@@ -134,10 +152,11 @@ class TransformerLM(nn.Module):
 def init_params(cfg: TransformerConfig, generator: Union[int, torch.Generator] = 0,
                 device=None) -> TransformerLM:
     """Random weights with the JAX package's scales (normal * fan_in^-0.5,
-    embed * 0.02, norms 1), drawn from a seeded torch.Generator on the
-    target device.  The numbers differ from jax.random's for the same seed;
-    tests that need both packages on one set of weights convert the JAX
-    params with models.convert.from_jax_params."""
+    embed * 0.02, norms 1; the MoE weights init_moe_params' scales), drawn
+    from a seeded torch.Generator on the target device.  The numbers differ
+    from jax.random's for the same seed; tests that need both packages on
+    one set of weights convert the JAX params with
+    models.convert.from_jax_params."""
     dev = resolve_device(device)
     model = TransformerLM(cfg, dev)
     gen = generator
@@ -150,9 +169,15 @@ def init_params(cfg: TransformerConfig, generator: Union[int, torch.Generator] =
     with torch.no_grad():
         normal_(model.embed, 0.02)
         for blk in model.blocks:
-            for name in BLOCK_KEYS:
+            moe = {}
+            if cfg.n_experts:
+                moe = init_moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.param_dtype,
+                                      dev)
+            for name in model.block_keys:
                 p = getattr(blk, name)
-                if name.startswith("ln"):
+                if name in moe:
+                    p.copy_(moe[name])
+                elif name.startswith("ln"):
                     p.fill_(1.0)
                 else:
                     normal_(p, p.shape[0] ** -0.5)
@@ -206,11 +231,9 @@ def _gqa_repeat(x, cfg: TransformerConfig):
     return x
 
 
-def _mlp(bp, x, cfg: TransformerConfig):
-    """Dense SwiGLU FFN with its residual."""
-    y = _rms_norm(x, bp["ln2"])
-    gated = F.silu(y @ bp["w_gate"]) * (y @ bp["w_up"])
-    return x + gated @ bp["w_down"]
+def _swiglu(bp, y):
+    """The dense SwiGLU FFN's delta for the normed activations y."""
+    return (F.silu(y @ bp["w_gate"]) * (y @ bp["w_up"])) @ bp["w_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -220,27 +243,42 @@ def _mlp(bp, x, cfg: TransformerConfig):
 
 def _block_forward(bp, x, cfg: TransformerConfig):
     """One block over the whole sequence (causal, no pad, positions from 0).
-    bp: {name: weight in the activation dtype}; x: [B, T, E]."""
-    b, t, _ = x.shape
+    bp: {name: weight in the activation dtype}; x: [B, T, E].  Returns
+    (x, aux): aux is the MoE load-balance loss in fp32, 0.0 when dense.
+    The MoE FFN routes the B * T tokens in flat order under one capacity,
+    dropping tokens past it (serving's FFN in models.generate drops none)."""
+    b, t, e = x.shape
     q, k, v = _project_qkv(bp, _rms_norm(x, bp["ln1"]), cfg)
     q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
     attn = attention(q, _gqa_repeat(k, cfg), _gqa_repeat(v, cfg), causal=True)
     x = x + attn.reshape(b, t, -1) @ bp["wo"]
-    return _mlp(bp, x, cfg)
+    y = _rms_norm(x, bp["ln2"])
+    if cfg.n_experts:
+        r = moe_ffn(y.reshape(b * t, e), bp["router"], bp["w_in"], bp["w_out"],
+                    capacity_factor=cfg.capacity_factor)
+        return x + r.out.reshape(b, t, e), r.aux_loss.float()
+    return x + _swiglu(bp, y), 0.0
 
 
-def forward(model: TransformerLM, ids):
-    """ids: [B, T] -> logits [B, T, V] in the activation dtype.  The dense
-    single-device path of the JAX forward: each fp32 master is cast to
-    cfg.dtype at its use, through autograd, so gradients reach the masters;
-    attention is the dispatcher (the flash kernels on the card)."""
+def forward(model: TransformerLM, ids, return_aux: bool = False):
+    """ids: [B, T] -> logits [B, T, V] in the activation dtype, and with
+    return_aux the MoE load-balance loss summed over the layers (an fp32
+    scalar, 0 when dense).  The single-device path of the JAX forward: each
+    fp32 master is cast to cfg.dtype at its use, through autograd, so
+    gradients reach the masters; attention is the dispatcher (the flash
+    kernels on the card)."""
     cfg = model.cfg
     dt = cfg.dtype
     x = model.embed.to(dt)[ids]
+    aux = 0.0
     for blk in model.blocks:
-        x = _block_forward({n: getattr(blk, n).to(dt) for n in BLOCK_KEYS}, x, cfg)
+        x, a = _block_forward({n: getattr(blk, n).to(dt) for n in model.block_keys}, x, cfg)
+        aux = aux + a
     x = _rms_norm(x, model.ln_f)
-    return x @ model.lm_head.to(dt)
+    logits = x @ model.lm_head.to(dt)
+    if return_aux:
+        return logits, torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    return logits
 
 
 def cross_entropy_loss(logits, targets, mask=None):
@@ -258,13 +296,15 @@ def cross_entropy_loss(logits, targets, mask=None):
 
 def make_loss_fn(cfg: TransformerConfig):
     """loss_fn(model, batch) with batch {"ids": [B, T + 1]}: next-token
-    cross-entropy of forward(model, ids[:, :-1]) against ids[:, 1:]."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE training (n_experts > 0) is not ported yet")
+    cross-entropy of forward(model, ids[:, :-1]) against ids[:, 1:], plus
+    moe_aux_weight times the load-balance loss when n_experts > 0."""
 
     def loss_fn(model: TransformerLM, batch):
         ids = torch.as_tensor(batch["ids"], device=model.device).long()
-        return cross_entropy_loss(forward(model, ids[:, :-1]), ids[:, 1:])
+        if not cfg.n_experts:
+            return cross_entropy_loss(forward(model, ids[:, :-1]), ids[:, 1:])
+        logits, aux = forward(model, ids[:, :-1], return_aux=True)
+        return cross_entropy_loss(logits, ids[:, 1:]) + cfg.moe_aux_weight * aux
 
     return loss_fn
 

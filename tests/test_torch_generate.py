@@ -72,9 +72,12 @@ def test_init_params_seeded_and_scaled():
     assert abs(std - WIDTHS["d_ff"] ** -0.5) < 0.3 * WIDTHS["d_ff"] ** -0.5
 
 
-def test_moe_config_refused():
-    with pytest.raises(NotImplementedError):
-        ttf.TransformerConfig(**WIDTHS, n_experts=4)
+def test_expert_parallel_config_refused():
+    """MoE runs with all experts on one device (ep = 1); ep > 1 needs the
+    all_to_all exchange of the parallel stack, which is not ported."""
+    assert ttf.TransformerConfig(**WIDTHS, n_experts=4).ep == 1
+    with pytest.raises(NotImplementedError, match="parallel-stack"):
+        ttf.TransformerConfig(**WIDTHS, n_experts=4, ep=2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

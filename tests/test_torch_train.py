@@ -55,7 +55,7 @@ def _rel_err(got, want, dtype="float32"):
 def _port_grads(model):
     """{name: grad} in the JAX tree's names, blocks stacked [L, ...]."""
     out = {n: getattr(model, n).grad.numpy() for n in ("embed", "ln_f", "lm_head")}
-    for n in ttf.BLOCK_KEYS:
+    for n in model.block_keys:
         out[n] = np.stack([getattr(blk, n).grad.numpy() for blk in model.blocks])
     return out
 
