@@ -26,6 +26,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      32 greedy tokens, against the same call with the plain attention;
   4. a ContinuousLLMServer at the flagship width answering 8 concurrent
      requests that share a system prefix (prefix-cache miss and hits);
+     then (after phase 5, its counts zeroed and read on their own) the
+     same 8 requests over HTTP: the port's runtime (ca.init, which must
+     detect the GPU itself), Serve on a port the OS picks, and
+     build_continuous_llm_deployment with one GPU replica in a process of
+     its own; 8 concurrent SSE streams, then 8 JSON POSTs, then the SSE
+     streams again on the warm replica, each answer equal
+     to the in-process server's or differing only on a near-tie, the
+     forward's launches read inside the replica, and no process of the
+     session left after shutdown;
   5. training at the flagship width and depth: entry()'s forward step, then
      make_train_step (AdamW) on a fixed batch of 8 x 1024 tokens, 1 warm-up
      step and 10 timed steps, 3 more under torch.profiler (device time by
@@ -44,7 +53,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
-kernel.  Prints a `kernels` JSON line (launches summed over all cells),
+kernel; the HTTP cell launches nothing in the driver.  Prints a `kernels`
+JSON line (launches summed over all cells, the replica's included),
 the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -702,47 +712,75 @@ def compare_with_plain_attention(torch, attn, cfg, model, ids_t, lens_t, out, ta
         f"{rate:.4f} (bf16 may flip near-ties, after which a row's continuation diverges)")
 
 
-def phase_server(torch, attn, cfg, tag="server"):
-    from cluster_anywhere_tpu_torch.llm import ContinuousLLMServer, ModelSpec, ProcessorConfig
+SYSTEM_PROMPT = (
+    "You are the operations assistant of a cluster that schedules tasks, actors "
+    "and placement groups over many nodes. Answer in one short paragraph, name the "
+    "component you rely on, and never invent metrics you were not given. When a "
+    "node is draining, say which work moves and where. When an object is lost, "
+    "explain lineage reconstruction. When a request is shed, cite the admission "
+    "policy. Keep answers under fifty words. ")
+
+
+def server_prompts():
+    """The server cells' 8 prompts: one system prefix, 8 questions."""
+    return [SYSTEM_PROMPT + f"Q{i}: why is node {i} slow?" for i in range(B)]
+
+
+def server_config(cfg):
+    """The server cells' ProcessorConfig: cfg's widths with the
+    ByteTokenizer, the weights from ModelSpec's seed, the prefix cache on."""
+    from cluster_anywhere_tpu_torch.llm import ModelSpec, ProcessorConfig
 
     overrides = {f: getattr(cfg, f) for f in ("d_model", "n_layers", "n_heads", "n_kv_heads",
                                               "d_head", "d_ff", "max_seq_len", "dtype",
                                               "n_experts")}
-    pcfg = ProcessorConfig(model=ModelSpec(preset="custom", config_overrides=overrides),
+    return ProcessorConfig(model=ModelSpec(preset="custom", config_overrides=overrides),
                            max_prompt_len=T, max_new_tokens=N_NEW, prefix_cache_entries=8)
+
+
+def in_threads(fn, n):
+    """[fn(i) for i < n], each call in its own thread, all started
+    together; and the seconds until the last one returned."""
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            out[i] = fn(i)
+        except Exception as e:  # reported below; fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in threads), "a request did not finish in 300 s")
+    check(not errors, f"requests failed: {errors}")
+    return out, time.perf_counter() - t0
+
+
+def token_stream(items):
+    """(seconds to the first item, the token ids) of a stream of
+    {"token_id", "text"} items."""
+    t0, first, toks = time.perf_counter(), None, []
+    for item in items:
+        first = time.perf_counter() - t0 if first is None else first
+        toks.append(item["token_id"])
+    return first, toks
+
+
+def phase_server(torch, attn, cfg, tag="server"):
+    """The server cell; returns each request's tokens and TTFT (s)."""
+    from cluster_anywhere_tpu_torch.llm import ContinuousLLMServer
+
+    pcfg = server_config(cfg)
     before = attn.flash_attention.launches
     srv = ContinuousLLMServer(pcfg, slots=8, device="cuda")
     try:
-        system = ("You are the operations assistant of a cluster that schedules tasks, actors "
-                  "and placement groups over many nodes. Answer in one short paragraph, name the "
-                  "component you rely on, and never invent metrics you were not given. When a "
-                  "node is draining, say which work moves and where. When an object is lost, "
-                  "explain lineage reconstruction. When a request is shed, cite the admission "
-                  "policy. Keep answers under fifty words. ")
-        users = [f"Q{i}: why is node {i} slow?" for i in range(B)]
-        ttft, tokens, errors = [None] * B, [None] * B, []
-        t_start = time.perf_counter()
-
-        def call(i):
-            try:
-                t0 = time.perf_counter()
-                toks = []
-                for item in srv.stream({"prompt": system + users[i]}):
-                    if not toks:
-                        ttft[i] = time.perf_counter() - t0
-                    toks.append(item["token_id"])
-                tokens[i] = toks
-            except Exception as e:  # reported below; fails the phase
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=call, args=(i,)) for i in range(B)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        wall = time.perf_counter() - t_start
-        check(not any(th.is_alive() for th in threads), "a server request did not finish in 300 s")
-        check(not errors, f"server requests failed: {errors}")
+        prompts = server_prompts()
+        streams, wall = in_threads(lambda i: token_stream(srv.stream({"prompt": prompts[i]})), B)
+        ttft, tokens = [first for first, _ in streams], [toks for _, toks in streams]
         n_tok = [len(t) for t in tokens]
         check(all(n == N_NEW for n in n_tok), f"requests answered {n_tok} tokens, want {N_NEW}")
         check(srv.cb.cfg.n_experts == cfg.n_experts, f"the server runs {srv.cb.cfg}")
@@ -751,14 +789,230 @@ def phase_server(torch, attn, cfg, tag="server"):
         srv.check_health()
         launches = attn.flash_attention.launches - before
         check(launches >= 1, "the server never launched flash_fwd")
-        prompt_len = len(srv.tok.encode(system + users[0]))
+        prompt_len = len(srv.tok.encode(prompts[0]))
         log(f"[{tag}] 8 concurrent requests, prompts {prompt_len} tokens sharing a "
-            f"{len(system)}-byte system prefix, {N_NEW} tokens each: TTFT p50 "
+            f"{len(SYSTEM_PROMPT)}-byte system prefix, {N_NEW} tokens each: TTFT p50 "
             f"{np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms; "
             f"{sum(n_tok) / wall:.1f} tok/s over {wall:.2f} s; stats {stats}; "
             f"flash_fwd launches {launches}")
+        return {"tokens": tokens, "ttft": ttft, "tok_s": sum(n_tok) / wall}
     finally:
         srv.close()
+
+
+# ----------------------------------------------------------------- phase 4b
+
+NEAR_TIE_GAP = 0.125  # twice 0.066, the largest bf16 logit gap between two runs seen (flagship)
+
+
+def counting_ingress():
+    """The SSE ingress that build_continuous_llm_deployment deploys, plus
+    one method that reads the replica's own process: its pid, the GPU it
+    holds, the forward kernel's launch count (reset on request) and the
+    library it loaded.  Defined in a function, so it travels by value to
+    the replica's worker."""
+    from cluster_anywhere_tpu_torch.llm.serve_llm import StreamingLLMIngress
+
+    class CountingIngress(StreamingLLMIngress):
+        def probe(self, reset=False):
+            import os
+
+            import torch
+
+            from cluster_anywhere_tpu_torch.ops import _build
+            from cluster_anywhere_tpu_torch.ops.attention import flash_attention
+
+            out = {"pid": os.getpid(), "launches": flash_attention.launches,
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "params": str(self.cb.params.device),
+                   "gpu": torch.cuda.get_device_name(self.cb.params.device),
+                   "allocated_gb": torch.cuda.memory_allocated(self.cb.params.device) / 1e9,
+                   "lib": str(_build.build("flash_fwd"))}
+            if reset:
+                flash_attention.launches = 0
+            return out
+
+    return CountingIngress
+
+
+def http_post(url, body, timeout=300):
+    """POST a JSON body; the JSON answer."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def sse_events(url, body, timeout=300):
+    """POST a JSON body asking for text/event-stream; yields each event."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST", headers={
+        "Content-Type": "application/json", "Accept": "text/event-stream"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                yield json.loads(line[len("data: "):])
+
+
+def top2_after(torch, cfg, model_box, prompt, common):
+    """The top two tokens and their logit gap after prompt + common tokens
+    (the server cell's weights, one plain prefill)."""
+    from cluster_anywhere_tpu_torch.llm import ByteTokenizer
+    from cluster_anywhere_tpu_torch.llm.processor import load_model
+    from cluster_anywhere_tpu_torch.models.generate import prefill
+
+    pcfg = server_config(cfg)
+    tcfg = pcfg.model.transformer_config(ByteTokenizer.vocab_size)
+    if not model_box:
+        model_box.append(load_model(pcfg, tcfg, torch.device("cuda")))
+    ids = torch.tensor([ByteTokenizer().encode(prompt) + list(common)], device="cuda")
+    with torch.no_grad():
+        logits, _ = prefill(model_box[0], ids, tcfg, ids.shape[1] + 1)
+    top = logits[0].float().topk(2)
+    return top.indices.tolist(), (top.values[0] - top.values[1]).item()
+
+
+def compare_rows(torch, cfg, want, got, what, model_box):
+    """Each request's answer against the in-process server's tokens: token
+    ids (SSE) or text (a JSON answer).  A differing row must be a near-tie
+    where it first differs: the in-process token and the other run's (for
+    text, whichever token the other run took) are the top two, at most
+    NEAR_TIE_GAP apart.  Returns the count of differing rows."""
+    from cluster_anywhere_tpu_torch.llm import ByteTokenizer
+
+    tok, prompts = ByteTokenizer(), server_prompts()
+    differing = 0
+    for i, (w, g) in enumerate(zip(want, got)):
+        if isinstance(g, str):
+            if g == tok.decode(w):
+                continue
+            k = max(j for j in range(len(w) + 1) if g.startswith(tok.decode(w[:j])))
+        else:
+            if g == w:
+                continue
+            k = next(j for j in range(len(w)) if w[j] != g[j])
+        differing += 1
+        check(k < len(w), f"{what} row {i} has more than the in-process server's tokens")
+        top, gap = top2_after(torch, cfg, model_box, prompts[i], w[:k])
+        tie = w[k] in top and gap <= NEAR_TIE_GAP and (isinstance(g, str) or g[k] in top)
+        log(f"[serve-http] {what} row {i} differs from the in-process server at token {k} "
+            f"(in-process {w[k]}, other {g if isinstance(g, str) else g[k]!r}): top two {top}, "
+            f"logit gap {gap:.4f}, near-tie {tie}")
+        check(tie, f"{what} row {i} differs from the in-process server, and not on a near-tie")
+    return differing
+
+
+def phase_serve_http(torch, attn, cfg, server):
+    """The server cell's requests over HTTP: the port's runtime and Serve,
+    build_continuous_llm_deployment with one GPU replica in its own
+    process, the proxy on a port the OS picks.  Returns the replica's
+    forward launches, read inside the replica."""
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch import serve
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.llm import build_continuous_llm_deployment
+    from cluster_anywhere_tpu_torch.ops import _build
+    from cluster_anywhere_tpu_torch.util import state
+
+    torch.cuda.empty_cache()
+    lib = _build.build("flash_fwd")
+    lib_mtime = lib.stat().st_mtime_ns
+    check("CA_NUM_GPUS" not in os.environ, "CA_NUM_GPUS is set: the cell checks detection")
+    t0 = time.perf_counter()
+    info = ca.init(num_cpus=4)
+    try:
+        log(f"[serve-http] ca.init: resources {info['resources']}, session {info['session_dir']}")
+        check(info["resources"].get("GPU") == 1.0,
+              f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
+        serve.start(port=0)
+        url = ca.get(ca.get_actor(serve.PROXY_NAME).ready.remote(), timeout=60) + "/llm"
+        app = build_continuous_llm_deployment(server_config(cfg), num_gpus=1, slots=8,
+                                              sse_ingress=True)
+        app.deployment.func_or_class = counting_ingress()  # same options, the probe added
+        handle = serve.run(app, name="llm", route_prefix="/llm", wait_timeout_s=240)
+        startup = time.perf_counter() - t0
+        probe = handle.options(method_name="probe").remote(reset=True).result(timeout_s=60)
+        log(f"[serve-http] replica ready {startup:.2f} s after ca.init: pid {probe['pid']} "
+            f"(driver {os.getpid()}), {probe['gpu']}, params on {probe['params']}, "
+            f"{probe['allocated_gb']:.2f} GB allocated, CUDA_VISIBLE_DEVICES "
+            f"{probe['visible']!r}, kernel library {probe['lib']}")
+        check(probe["pid"] != os.getpid(), "the replica runs in the driver's process")
+        check(probe["params"].startswith("cuda") and probe["allocated_gb"] > 0.1,
+              f"the replica does not hold the GPU: {probe}")
+        check(probe["lib"] == str(lib) and lib.stat().st_mtime_ns == lib_mtime,
+              f"the replica did not load the driver's build of flash_fwd: {probe['lib']}")
+
+        prompts, want = server_prompts(), server["tokens"]
+        zero_launch_counts(attn)
+        # SSE first: a fresh replica's first wave, as the in-process cell's
+        # fresh server (one prefix miss, seven hits), so their TTFTs compare
+        def sse(i):
+            return token_stream(sse_events(url, {"prompt": prompts[i]}))
+
+        streams, sse_wall = in_threads(sse, B)
+        answers, wall = in_threads(lambda i: http_post(url, {"prompt": prompts[i]}), B)
+        # and SSE again on the warm replica: what the first wave's start costs
+        warm, warm_wall = in_threads(sse, B)
+        after = handle.options(method_name="probe").remote().result(timeout_s=60)
+        driver_launches = launch_counts(attn)
+        check(all(a["num_generated_tokens"] == N_NEW for a in answers),
+              f"HTTP answers have {[a['num_generated_tokens'] for a in answers]} tokens")
+        check(all(len(toks) == N_NEW for _, toks in streams + warm),
+              f"SSE streams have {[len(t) for _, t in streams + warm]} events, want {N_NEW}")
+        model_box = []  # the server cell's weights, loaded once if a row differs
+        differing = compare_rows(torch, cfg, want, [a["generated_text"] for a in answers],
+                                 "HTTP", model_box)
+        sse_differing = compare_rows(torch, cfg, want, [t for _, t in streams], "SSE", model_box)
+        warm_differing = compare_rows(torch, cfg, want, [t for _, t in warm], "SSE (warm)",
+                                      model_box)
+        del model_box
+        check(after["pid"] == probe["pid"], "the replica changed during the cell")
+        check(driver_launches == (0, 0, 0),
+              f"the driver launched kernels during the HTTP cell: {driver_launches}")
+        check(after["launches"] >= cfg.n_layers,
+              f"the replica launched flash_fwd {after['launches']} times, want >= {cfg.n_layers}")
+        ttft = [first for first, _ in streams]
+        warm_ttft = [first for first, _ in warm]
+        log(f"[serve-http] 8 concurrent SSE streams (the replica's first wave), {N_NEW} tokens "
+            f"each: TTFT p50 {np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms, "
+            f"{B * N_NEW / sse_wall:.1f} tok/s over {sse_wall:.2f} s, {B - sse_differing} of {B} "
+            f"streams equal to the in-process server's; then 8 concurrent JSON POSTs (prefix "
+            f"cached): {B * N_NEW / wall:.1f} tok/s over {wall:.2f} s, {B - differing} of {B} "
+            f"texts equal; SSE again: TTFT p50 {np.median(warm_ttft) * 1e3:.1f} ms, max "
+            f"{max(warm_ttft) * 1e3:.1f} ms, {B * N_NEW / warm_wall:.1f} tok/s, "
+            f"{B - warm_differing} of {B} equal; in-process server (same call): TTFT p50 "
+            f"{np.median(server['ttft']) * 1e3:.1f} ms, max {max(server['ttft']) * 1e3:.1f} ms, "
+            f"{server['tok_s']:.1f} tok/s; replica start-up {startup:.2f} s; replica flash_fwd "
+            f"launches {after['launches']}")
+        pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+    finally:
+        serve.shutdown()
+        ca.shutdown()
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.2)
+    check(not alive, f"processes of the port's session still alive after shutdown: {alive}")
+    log(f"[serve-http] serve.shutdown() and ca.shutdown(): none of {len(pids)} processes "
+        f"(head and workers) left")
+    return after["launches"]
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:  # a zombie child of this process is gone but not yet reaped
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1003,6 +1257,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    import cloudpickle
+    import msgpack
+
+    codec = "C extension" if msgpack.Packer.__module__ == "msgpack._cmsgpack" else "pure Python"
+    log(f"[env] runtime codecs: msgpack {'.'.join(map(str, msgpack.version))} ({codec}) from "
+        f"{os.path.dirname(msgpack.__file__)}, cloudpickle {cloudpickle.__version__} from "
+        f"{os.path.dirname(cloudpickle.__file__)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     phase_build()
@@ -1017,13 +1278,18 @@ def main() -> int:
     # the main path starts here
     zero_launch_counts(attn)
     out = run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms)
-    phase_server(torch, attn, cfg)
+    server = phase_server(torch, attn, cfg)
     serving = launch_counts(attn)
     phase_train(torch, attn)
     launches = launch_counts(attn)  # ... and ends here
     log(f"[main path] launches (fwd, dQ, dK/dV): serving {serving}, in all {launches}")
     check_serving_launches("serving", serving)
     check(all(n > 0 for n in launches), f"a kernel was not launched on the main path: {launches}")
+
+    # the server cell over HTTP: zeroed and read in the driver and, for the
+    # launches that count, inside the replica's process
+    replica_fwd = phase_serve_http(torch, attn, cfg, server)
+    launches = (launches[0] + replica_fwd,) + launches[1:]
 
     # the MoE cells, each read between zeroed counts
     moe = moe_flagship()

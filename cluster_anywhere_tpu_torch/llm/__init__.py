@@ -1,5 +1,5 @@
-"""LLM serving for the port: the inference worker, continuous batching and
-the serving classes, on the card.
+"""LLM serving for the port: the inference worker, continuous batching, the
+serving classes and their Serve deployments, on the card.
 
     from cluster_anywhere_tpu_torch import llm
     srv = llm.ContinuousLLMServer(llm.ProcessorConfig(model=llm.ModelSpec(preset="tiny")))
@@ -9,14 +9,23 @@ the serving classes, on the card.
 
 from .continuous import ContinuousBatcher, Request
 from .processor import ByteTokenizer, ModelSpec, ProcessorConfig
-from .serve_llm import ContinuousLLMServer, LLMServer
+from .serve_llm import (
+    ContinuousLLMServer,
+    LLMServer,
+    StreamingLLMIngress,
+    build_continuous_llm_deployment,
+    build_llm_deployment,
+)
 
 __all__ = [
     "ProcessorConfig",
     "ModelSpec",
     "ByteTokenizer",
     "LLMServer",
+    "build_llm_deployment",
     "ContinuousBatcher",
     "Request",
     "ContinuousLLMServer",
+    "StreamingLLMIngress",
+    "build_continuous_llm_deployment",
 ]

@@ -2,9 +2,10 @@
 cluster_anywhere_tpu/llm/processor.py): tokenize, left-pad to a fixed
 prompt length, generate on the card, detokenize.
 
-The Data-library pipeline (`Processor`, `build_llm_processor`) needs the
-runtime and is not ported yet; so are the config fields only it reads
-(batch_size, concurrency, the chat template).
+The Data-library pipeline (`Processor`, `build_llm_processor`) is not
+ported yet (ROADMAP Queue 1 item 2b).  The config fields only it reads
+(batch_size, concurrency, apply_chat_template, system_prompt) are accepted
+and inert until then, as they are on the JAX package's serving path.
 """
 
 from __future__ import annotations
@@ -66,11 +67,16 @@ class ModelSpec:
 class ProcessorConfig:
     model: ModelSpec = field(default_factory=ModelSpec)
     tokenizer: Any = None  # defaults to ByteTokenizer
+    # read by the Data library's Processor (not ported yet); inert when serving
+    batch_size: int = 8
+    concurrency: int = 1
     max_prompt_len: int = 64
     max_new_tokens: int = 16
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    apply_chat_template: bool = False  # Processor only, as batch_size
+    system_prompt: str = ""  # Processor only, as batch_size
     # prefix/KV-cache reuse in ContinuousLLMServer: requests sharing a
     # system-prompt prefix skip its prefill (0 entries disables)
     prefix_cache_entries: int = 8

@@ -11,7 +11,8 @@ the serving path uses a copy cast once per weight update
 cast is deterministic.  Training runs on one device with AdamW
 (`make_train_step`).  With n_experts > 0 every block's FFN is a top-1
 mixture of experts (parallel/moe.py) with all experts on this device
-(ep = 1); pipeline/sequence/expert parallelism and remat are later slices.
+(ep = 1); pipeline/sequence/expert parallelism are a later slice, and
+their config values raise until then.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
-from ..ops.attention import attention
+from ..ops.attention import attention, flash_attention, reference_attention
 from ..parallel.moe import init_moe_params, moe_ffn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -40,8 +42,25 @@ def as_torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[name]
 
 
+_PARALLEL_ITEM = "3"  # ROADMAP Queue 1 item: the parallel stack
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
+    """The JAX package's config, field for field.  Values that mean one
+    device run; the others raise NotImplementedError naming the parallel
+    stack's ROADMAP item.
+
+    attn_impl: the training forward's attention.  "auto" and "dense" take
+    the dispatcher (the flash kernels on the card), "flash" forces
+    flash_attention (its plain version on the CPU), "jnp" the dense
+    reference_attention; "ring" and "ulysses" need sp > 1.
+    flash_block_q/k: accepted and ignored, since the Hopper kernels' tiles
+    are fixed (ops/csrc/flash_sm90.cuh).  remat recomputes each block in
+    the backward (torch.utils.checkpoint, the jax.checkpoint of the JAX
+    forward).  unroll_layers has no effect: eager layers are never a
+    rolled loop."""
+
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -53,6 +72,14 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
+    attn_impl: str = "auto"  # auto | dense | flash | jnp (ring | ulysses not ported)
+    flash_block_q: Any = None
+    flash_block_k: Any = None
+    pp: int = 1
+    sp: int = 1
+    num_microbatches: int = 1
+    remat: bool = False
+    unroll_layers: bool = True
     # mixture-of-experts FFN (parallel/moe.py, switch-style top-1): every
     # block's dense FFN becomes n_experts experts.  0 = dense.
     n_experts: int = 0
@@ -66,10 +93,30 @@ class TransformerConfig:
         if self.ep != 1:
             raise NotImplementedError(
                 f"expert parallelism ep={self.ep} is not ported: the all_to_all exchange over a "
-                "process group comes with the parallel-stack slice; use ep=1 (all experts on "
-                "one device)")
+                "process group comes with the parallel-stack slice (ROADMAP Queue 1 item "
+                f"{_PARALLEL_ITEM}); use ep=1 (all experts on one device)")
+        for name in ("pp", "sp", "num_microbatches"):
+            if getattr(self, name) != 1:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)} is not ported: pipeline and sequence "
+                    f"parallelism come with the parallel stack (ROADMAP Queue 1 item "
+                    f"{_PARALLEL_ITEM}); use {name}=1")
+        if self.attn_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r} is not ported: sequence-parallel attention comes "
+                f"with the parallel stack (ROADMAP Queue 1 item {_PARALLEL_ITEM})")
+        if self.attn_impl not in _ATTENTION:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} not a multiple of n_kv_heads {self.n_kv_heads}")
+
+
+_ATTENTION = {
+    "auto": attention,
+    "dense": attention,
+    "flash": flash_attention,
+    "jnp": reference_attention,
+}
 
 
 def block_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
@@ -250,7 +297,7 @@ def _block_forward(bp, x, cfg: TransformerConfig):
     b, t, e = x.shape
     q, k, v = _project_qkv(bp, _rms_norm(x, bp["ln1"]), cfg)
     q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
-    attn = attention(q, _gqa_repeat(k, cfg), _gqa_repeat(v, cfg), causal=True)
+    attn = _ATTENTION[cfg.attn_impl](q, _gqa_repeat(k, cfg), _gqa_repeat(v, cfg), causal=True)
     x = x + attn.reshape(b, t, -1) @ bp["wo"]
     y = _rms_norm(x, bp["ln2"])
     if cfg.n_experts:
@@ -266,13 +313,19 @@ def forward(model: TransformerLM, ids, return_aux: bool = False):
     scalar, 0 when dense).  The single-device path of the JAX forward: each
     fp32 master is cast to cfg.dtype at its use, through autograd, so
     gradients reach the masters; attention is the dispatcher (the flash
-    kernels on the card)."""
+    kernels on the card, or cfg.attn_impl's choice).  With cfg.remat each
+    block's activations are recomputed in the backward instead of kept."""
     cfg = model.cfg
     dt = cfg.dtype
     x = model.embed.to(dt)[ids]
     aux = 0.0
     for blk in model.blocks:
-        x, a = _block_forward({n: getattr(blk, n).to(dt) for n in model.block_keys}, x, cfg)
+        bp = {n: getattr(blk, n).to(dt) for n in model.block_keys}
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = torch.utils.checkpoint.checkpoint(_block_forward, bp, x, cfg,
+                                                     use_reentrant=False)
+        else:
+            x, a = _block_forward(bp, x, cfg)
         aux = aux + a
     x = _rms_norm(x, model.ln_f)
     logits = x @ model.lm_head.to(dt)
