@@ -35,6 +35,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      to the in-process server's or differing only on a near-tie, the
      forward's launches read inside the replica, and no process of the
      session left after shutdown;
+  4c. (after 4b, on a session of its own) the Data library: the processor
+     cell, build_llm_processor over cad.from_items of 60 prompts with the
+     chat template and the server cell's system prefix, its inference in
+     one GPU actor that the Data executor starts (60 rows back, each equal
+     to the in-process _InferenceWorker's tokens or differing on a
+     near-tie, the forward's launches read inside the actor for every
+     batch, none in the driver); then the train-data cell, the train
+     cell's step fed by cad.from_numpy(ids).iter_torch_batches on the card
+     (every batch equal to its rows of ids, step 1's loss equal to the
+     host's rows', all three kernels launched);
   5. training at the flagship width and depth: entry()'s forward step, then
      make_train_step (AdamW) on a fixed batch of 8 x 1024 tokens, 1 warm-up
      step and 10 timed steps, 3 more under torch.profiler (device time by
@@ -53,9 +63,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
-kernel; the HTTP cell launches nothing in the driver.  Prints a `kernels`
-JSON line (launches summed over all cells, the replica's included),
-the card's name and power limit, and as its last line
+kernel; the HTTP and processor cells launch nothing in the driver.
+Prints whether pyarrow and pandas import (the Data library needs
+neither), a `kernels` JSON line (launches summed over all cells, the
+replica's and the processor actor's included), the card's name and power
+limit, and as its last line
 {"ok": true, "device": {...}}.
 """
 
@@ -726,16 +738,23 @@ def server_prompts():
     return [SYSTEM_PROMPT + f"Q{i}: why is node {i} slow?" for i in range(B)]
 
 
-def server_config(cfg):
-    """The server cells' ProcessorConfig: cfg's widths with the
-    ByteTokenizer, the weights from ModelSpec's seed, the prefix cache on."""
-    from cluster_anywhere_tpu_torch.llm import ModelSpec, ProcessorConfig
+def flagship_spec(cfg):
+    """A ModelSpec of cfg's widths for the ByteTokenizer, the weights from
+    ModelSpec's seed (0)."""
+    from cluster_anywhere_tpu_torch.llm import ModelSpec
 
     overrides = {f: getattr(cfg, f) for f in ("d_model", "n_layers", "n_heads", "n_kv_heads",
                                               "d_head", "d_ff", "max_seq_len", "dtype",
                                               "n_experts")}
-    return ProcessorConfig(model=ModelSpec(preset="custom", config_overrides=overrides),
-                           max_prompt_len=T, max_new_tokens=N_NEW, prefix_cache_entries=8)
+    return ModelSpec(preset="custom", seed=0, config_overrides=overrides)
+
+
+def server_config(cfg):
+    """The server cells' ProcessorConfig: flagship_spec, the prefix cache on."""
+    from cluster_anywhere_tpu_torch.llm import ProcessorConfig
+
+    return ProcessorConfig(model=flagship_spec(cfg), max_prompt_len=T, max_new_tokens=N_NEW,
+                           prefix_cache_entries=8)
 
 
 def in_threads(fn, n):
@@ -858,33 +877,34 @@ def sse_events(url, body, timeout=300):
                 yield json.loads(line[len("data: "):])
 
 
-def top2_after(torch, cfg, model_box, prompt, common):
-    """The top two tokens and their logit gap after prompt + common tokens
-    (the server cell's weights, one plain prefill)."""
+def top2_after(torch, pcfg, model_box, prompt, common):
+    """The top two tokens and their logit gap after prompt (cut to
+    pcfg.max_prompt_len tokens, as the inference worker cuts it) + common
+    tokens (pcfg's weights, one plain prefill)."""
     from cluster_anywhere_tpu_torch.llm import ByteTokenizer
     from cluster_anywhere_tpu_torch.llm.processor import load_model
     from cluster_anywhere_tpu_torch.models.generate import prefill
 
-    pcfg = server_config(cfg)
     tcfg = pcfg.model.transformer_config(ByteTokenizer.vocab_size)
     if not model_box:
         model_box.append(load_model(pcfg, tcfg, torch.device("cuda")))
-    ids = torch.tensor([ByteTokenizer().encode(prompt) + list(common)], device="cuda")
+    prompt_ids = ByteTokenizer().encode(prompt)[: pcfg.max_prompt_len]
+    ids = torch.tensor([prompt_ids + list(common)], device="cuda")
     with torch.no_grad():
         logits, _ = prefill(model_box[0], ids, tcfg, ids.shape[1] + 1)
     top = logits[0].float().topk(2)
     return top.indices.tolist(), (top.values[0] - top.values[1]).item()
 
 
-def compare_rows(torch, cfg, want, got, what, model_box):
-    """Each request's answer against the in-process server's tokens: token
-    ids (SSE) or text (a JSON answer).  A differing row must be a near-tie
-    where it first differs: the in-process token and the other run's (for
-    text, whichever token the other run took) are the top two, at most
-    NEAR_TIE_GAP apart.  Returns the count of differing rows."""
+def compare_rows(torch, pcfg, prompts, want, got, what, model_box, tag="serve-http"):
+    """Each request's answer against the in-process run's tokens: token
+    ids (SSE, a processor row) or text (a JSON answer).  A differing row
+    must be a near-tie where it first differs: the in-process token and the
+    other run's (for text, whichever token the other run took) are the top
+    two, at most NEAR_TIE_GAP apart.  Returns the count of differing rows."""
     from cluster_anywhere_tpu_torch.llm import ByteTokenizer
 
-    tok, prompts = ByteTokenizer(), server_prompts()
+    tok = ByteTokenizer()
     differing = 0
     for i, (w, g) in enumerate(zip(want, got)):
         if isinstance(g, str):
@@ -896,13 +916,13 @@ def compare_rows(torch, cfg, want, got, what, model_box):
                 continue
             k = next(j for j in range(len(w)) if w[j] != g[j])
         differing += 1
-        check(k < len(w), f"{what} row {i} has more than the in-process server's tokens")
-        top, gap = top2_after(torch, cfg, model_box, prompts[i], w[:k])
+        check(k < len(w), f"{what} row {i} has more than the in-process run's tokens")
+        top, gap = top2_after(torch, pcfg, model_box, prompts[i], w[:k])
         tie = w[k] in top and gap <= NEAR_TIE_GAP and (isinstance(g, str) or g[k] in top)
-        log(f"[serve-http] {what} row {i} differs from the in-process server at token {k} "
+        log(f"[{tag}] {what} row {i} differs from the in-process run at token {k} "
             f"(in-process {w[k]}, other {g if isinstance(g, str) else g[k]!r}): top two {top}, "
             f"logit gap {gap:.4f}, near-tie {tie}")
-        check(tie, f"{what} row {i} differs from the in-process server, and not on a near-tie")
+        check(tie, f"{what} row {i} differs from the in-process run, and not on a near-tie")
     return differing
 
 
@@ -964,11 +984,13 @@ def phase_serve_http(torch, attn, cfg, server):
         check(all(len(toks) == N_NEW for _, toks in streams + warm),
               f"SSE streams have {[len(t) for _, t in streams + warm]} events, want {N_NEW}")
         model_box = []  # the server cell's weights, loaded once if a row differs
-        differing = compare_rows(torch, cfg, want, [a["generated_text"] for a in answers],
-                                 "HTTP", model_box)
-        sse_differing = compare_rows(torch, cfg, want, [t for _, t in streams], "SSE", model_box)
-        warm_differing = compare_rows(torch, cfg, want, [t for _, t in warm], "SSE (warm)",
-                                      model_box)
+        pcfg = server_config(cfg)
+        differing = compare_rows(torch, pcfg, prompts, want,
+                                 [a["generated_text"] for a in answers], "HTTP", model_box)
+        sse_differing = compare_rows(torch, pcfg, prompts, want, [t for _, t in streams], "SSE",
+                                     model_box)
+        warm_differing = compare_rows(torch, pcfg, prompts, want, [t for _, t in warm],
+                                      "SSE (warm)", model_box)
         del model_box
         check(after["pid"] == probe["pid"], "the replica changed during the cell")
         check(driver_launches == (0, 0, 0),
@@ -1015,6 +1037,278 @@ def _pid_alive(pid):
         return False
 
 
+# ----------------------------------------------------------------- phase 4c
+
+PROC_ROWS = 60  # the processor cell's rows, batches of B
+
+
+@contextlib.contextmanager
+def watchdog(seconds, what):
+    """Ends the whole script if the block has not finished in `seconds`: a
+    GPU actor the cluster cannot place would otherwise wait forever."""
+    def fire():
+        log(f"[watchdog] {what} did not finish in {seconds} s; exiting")
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def processor_rows():
+    """The processor cell's input: 60 rows, each an id and a prompt of
+    64-440 bytes of lowercase words, from numpy's seed 0."""
+    rng = np.random.default_rng(0)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz    ", dtype=np.uint8)
+    return [{"id": i, "text": rng.choice(letters, int(n)).tobytes().decode()}
+            for i, n in enumerate(rng.integers(64, 441, PROC_ROWS))]
+
+
+def processor_config(cfg):
+    """The processor cell's ProcessorConfig: the server cell's weights and
+    system prefix, the chat template on, batches of 8, one actor."""
+    from cluster_anywhere_tpu_torch.llm import ProcessorConfig
+
+    return ProcessorConfig(model=flagship_spec(cfg), batch_size=B, concurrency=1,
+                           max_prompt_len=T, max_new_tokens=N_NEW, temperature=0.0,
+                           apply_chat_template=True, system_prompt=SYSTEM_PROMPT)
+
+
+def counting_worker():
+    """_InferenceWorker as the Processor runs it, plus columns that read the
+    actor's own process for each batch: its pid, the batch's index, the
+    forward kernel's launches during the batch, the GPU it holds and the
+    library it loaded, and the wall-clock times of its start and of the
+    batch's start and end.  Defined in a function, so it travels by value to the
+    actor's worker."""
+    from cluster_anywhere_tpu_torch.llm.processor import _InferenceWorker
+
+    class CountingWorker(_InferenceWorker):
+        def __init__(self, *args, **kwargs):
+            import time
+
+            super().__init__(*args, **kwargs)
+            self.batches, self.ready_at = 0, time.time()
+
+        def __call__(self, batch, **kwargs):
+            import os
+            import time
+
+            import numpy as np
+            import torch
+
+            from cluster_anywhere_tpu_torch.ops import _build
+            from cluster_anywhere_tpu_torch.ops.attention import flash_attention
+
+            before, started_at = flash_attention.launches, time.time()
+            out = super().__call__(batch, **kwargs)
+            self.batches += 1
+            dev = self.device
+            probe = {"pid": os.getpid(), "batch": self.batches,
+                     "launches": flash_attention.launches - before,
+                     "visible": str(os.environ.get("CUDA_VISIBLE_DEVICES")),
+                     "params": str(self.params.device),
+                     "gpu": torch.cuda.get_device_name(dev),
+                     "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9,
+                     "lib": str(_build.build("flash_fwd")), "ready_at": self.ready_at,
+                     "started_at": started_at, "done_at": time.time()}
+            n = len(out["generated_tokens"])
+            out["actor"] = np.asarray([probe] * n, dtype=object)
+            return out
+
+    return CountingWorker
+
+
+def phase_processor(torch, attn, cfg):
+    """The processor cell: build_llm_processor over cad.from_items, the
+    inference in one GPU actor the Data executor starts (the Processor's own
+    map_batches call, its worker class counting inside the actor).  Returns
+    the actor's forward launches."""
+    import cluster_anywhere_tpu_torch.data as cad
+    from cluster_anywhere_tpu_torch import llm
+    from cluster_anywhere_tpu_torch.llm import processor as proc_mod
+    from cluster_anywhere_tpu_torch.ops import _build
+
+    def preprocess(row):  # nested, like the stages below: they travel by value
+        return {"id": row["id"], "prompt": row["text"]}
+
+    def postprocess(row):
+        return {"id": row["id"], "prompt": row["prompt"], "tokens": row["generated_tokens"],
+                "actor": row["actor"]}
+
+    pcfg = processor_config(cfg)
+    lib = _build.build("flash_fwd")
+    lib_mtime = lib.stat().st_mtime_ns
+    processor = llm.build_llm_processor(pcfg, preprocess=preprocess, postprocess=postprocess)
+    real = proc_mod._InferenceWorker
+    proc_mod._InferenceWorker = counting_worker()
+    try:
+        ds = processor(cad.from_items(processor_rows()))
+    finally:
+        proc_mod._InferenceWorker = real
+    zero_launch_counts(attn)
+    start_wall, t0 = time.time(), time.perf_counter()
+    with watchdog(600, "the processor cell's pipeline"):
+        rows = ds.take_all()
+    wall = time.perf_counter() - t0
+    driver_launches = launch_counts(attn)
+
+    ids = sorted(r["id"] for r in rows)
+    check(ids == list(range(PROC_ROWS)), f"the pipeline returned ids {ids}")
+    batches = {r["actor"]["batch"]: r["actor"] for r in rows}
+    actor = batches[max(batches)]
+    startup = actor["ready_at"] - start_wall
+    log(f"[processor] actor: pid {actor['pid']} (driver {os.getpid()}), {actor['gpu']}, params on "
+        f"{actor['params']}, {actor['allocated_gb']:.2f} GB allocated, CUDA_VISIBLE_DEVICES "
+        f"{actor['visible']!r}, kernel library {actor['lib']}; ready {startup:.2f} s after "
+        f"take_all began")
+    check({p["pid"] for p in batches.values()} == {actor["pid"]} and actor["pid"] != os.getpid(),
+          f"the pipeline did not run in one actor of its own: {batches}")
+    check(actor["params"].startswith("cuda") and actor["allocated_gb"] > 0.1,
+          f"the actor does not hold the GPU: {actor}")
+    check(actor["lib"] == str(lib) and lib.stat().st_mtime_ns == lib_mtime,
+          f"the actor did not load the driver's build of flash_fwd: {actor['lib']}")
+    per_batch = [batches[b]["launches"] for b in sorted(batches)]
+    check(all(n >= cfg.n_layers for n in per_batch),
+          f"the actor's batches launched flash_fwd {per_batch} times, want >= {cfg.n_layers} each")
+    check(driver_launches == (0, 0, 0),
+          f"the driver launched kernels during the pipeline: {driver_launches}")
+
+    # the same templated prompts through the in-process worker, 8 at a time
+    by_id = {r["id"]: r for r in rows}
+    prompts = [by_id[i]["prompt"] for i in range(PROC_ROWS)]
+    worker = real(pcfg, "cuda")
+    want, local = [], []
+    for lo in range(0, PROC_ROWS, B):
+        t1 = time.perf_counter()
+        out = worker({"prompt": np.asarray(prompts[lo:lo + B], dtype=object)})
+        local.append(time.perf_counter() - t1)
+        want.extend(row.tolist() for row in out["generated_tokens"])
+    local_s = sum(local)
+    del worker
+    torch.cuda.empty_cache()
+    got = [by_id[i]["tokens"].tolist() for i in range(PROC_ROWS)]
+    check(all(len(g) == N_NEW for g in got), "a row has not 32 generated tokens")
+    check(all(p.startswith(f"<|system|>{SYSTEM_PROMPT}<|user|>") and p.endswith("<|assistant|>")
+              for p in prompts), "a row's prompt is not the chat template's")
+    model_box = []
+    differing = compare_rows(torch, pcfg, prompts, want, got, "row", model_box, tag="processor")
+    del model_box
+    steady = max(p["done_at"] for p in batches.values()) - actor["ready_at"]
+    order = [batches[b] for b in sorted(batches)]
+    busy = [p["done_at"] - p["started_at"] for p in order]
+    idle = [p["started_at"] - q["done_at"] for q, p in zip([{"done_at": actor["ready_at"]}] + order,
+                                                          order)]
+    tokens = PROC_ROWS * N_NEW
+    log(f"[processor] {PROC_ROWS} rows ({len(batches)} batches, prompts cut to {T} tokens of "
+        f"{min(len(p) for p in prompts) + 1}-{max(len(p) for p in prompts) + 1}), {N_NEW} greedy "
+        f"tokens each: pipeline {wall:.2f} s, {PROC_ROWS / wall:.2f} rows/s, "
+        f"{tokens / wall:.1f} generated tok/s; after the actor's start-up ({startup:.2f} s) "
+        f"{tokens / steady:.1f} tok/s over {steady:.2f} s; in-process worker over the same "
+        f"prompts (same call) {tokens / local_s:.1f} tok/s over {local_s:.2f} s; "
+        f"{PROC_ROWS - differing} of {PROC_ROWS} rows equal to the in-process worker's; actor "
+        f"flash_fwd launches per batch {per_batch}, driver launches {driver_launches}")
+    log(f"[processor] the actor's seconds in each call, in batch order: "
+        f"{' '.join(f'{b:.3f}' for b in busy)}; waiting before each call: "
+        f"{' '.join(f'{w:.3f}' for w in idle)}; the in-process worker's seconds a batch "
+        f"{' '.join(f'{t:.3f}' for t in local)}")
+    return sum(per_batch)
+
+
+def phase_train_data(torch, attn, cfg, train_ms):
+    """The train-data cell: the train cell's step fed by
+    cad.from_numpy(ids).iter_torch_batches (the card, prefetch 1).  Returns
+    the cell's launches (fwd, dQ, dK/dV)."""
+    import cluster_anywhere_tpu_torch.data as cad
+    from cluster_anywhere_tpu_torch.models import make_train_step
+
+    n = TRAIN_STEPS + 1
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B * n, TRAIN_T + 1))
+    step, init_state = make_train_step(cfg)
+    model, opt = init_state(0)
+    _, _, host_loss = step(model, opt, {"ids": torch.from_numpy(ids[:TRAIN_B]).cuda()})
+    host_loss = host_loss.item()
+    model, opt = init_state(0)
+    zero_launch_counts(attn)
+    it = iter(cad.from_numpy(ids).iter_torch_batches(batch_size=TRAIN_B, prefetch=1))
+    batches, losses, waits = [], [], []
+    with watchdog(600, "the train-data cell"):
+        for i in range(n):
+            t0 = time.perf_counter()
+            batch = next(it)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:  # the warm-up step is done: time the rest
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            batches.append(batch["data"])
+            losses.append(step(model, opt, {"ids": batch["data"]})[2])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t_start) / TRAIN_STEPS * 1e3
+        extra = next(it, None)
+    launches = launch_counts(attn)
+    # the same step on one batch already on the card, in this session: what
+    # the session costs a step, apart from the iteration
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        step(model, opt, {"ids": batches[-1]})
+    torch.cuda.synchronize()
+    fixed_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    check(extra is None, "iter_torch_batches gave more than the dataset's batches")
+    for i, got in enumerate(batches):
+        check(got.is_cuda and got.dtype == torch.int64,
+              f"batch {i} is {got.dtype} on {got.device}, want int64 on the card")
+        check(torch.equal(got.cpu(), torch.from_numpy(ids[i * TRAIN_B:(i + 1) * TRAIN_B])),
+              f"batch {i} differs from its rows of ids")
+    losses = [x.item() for x in losses]
+    rel = abs(losses[0] - host_loss) / abs(host_loss)
+    log(f"[train-data] cad.from_numpy(ids {ids.shape} {ids.dtype}).iter_torch_batches(batch_size="
+        f"{TRAIN_B}, prefetch=1): {n} batches, each int64 on the card and equal to its rows of ids; "
+        f"step {step_ms:.2f} ms over {TRAIN_STEPS} steps (host clock, ending in synchronize) against "
+        f"the train cell's {train_ms:.2f} ms in this call ({step_ms / train_ms:.3f}x) and the "
+        f"same step on one batch already on the card in this session {fixed_ms:.2f} ms; host wait "
+        f"for each batch (ms) {' '.join(f'{w:.3f}' for w in waits)}; step 1's loss {losses[0]:.6f} "
+        f"vs {host_loss:.6f} from the host's rows (relative {rel:.3g}, limit 1e-6); loss over "
+        f"{n} steps {' '.join(f'{x:.4f}' for x in losses)}; launches (fwd, dQ, dK/dV) {launches}")
+    check(rel <= 1e-6, f"step 1's loss {losses[0]} differs from the host's rows' {host_loss}")
+    check(all(np.isfinite(losses)), f"non-finite train-data loss: {losses}")
+    check(launches == (cfg.n_layers * n,) * 3,
+          f"the train-data cell launched (fwd, dQ, dK/dV) {launches}, want {cfg.n_layers * n} each")
+    return launches
+
+
+def phase_data(torch, attn, cfg, train_ms):
+    """The processor and train-data cells on one session of the port's
+    runtime (ca.init detects the GPU); no process of it left after
+    shutdown.  Returns their launches (fwd, dQ, dK/dV), the actor's
+    included."""
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.util import state
+
+    torch.cuda.empty_cache()
+    info = ca.init(num_cpus=4)
+    try:
+        check(info["resources"].get("GPU") == 1.0,
+              f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
+        actor_fwd = phase_processor(torch, attn, cfg)
+        train = phase_train_data(torch, attn, cfg, train_ms)
+        pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+    finally:
+        ca.shutdown()
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.2)
+    check(not alive, f"processes of the port's session still alive after shutdown: {alive}")
+    return (train[0] + actor_fwd,) + train[1:]
+
+
 # ----------------------------------------------------------------- phase 5
 
 
@@ -1059,13 +1353,14 @@ def phase_train(torch, attn):
           f"entry() forward gave {tuple(logits.shape)} {logits.dtype}, or non-finite logits")
     log(f"[entry] forward step on ids (4, 1024): logits {tuple(logits.shape)} {logits.dtype}, finite")
     del fn, args, logits
-    train_cell(torch, attn, flagship())
+    return train_cell(torch, attn, flagship())
 
 
 def train_cell(torch, attn, cfg, tag="train"):
     """make_train_step on a fixed batch: 1 warm-up step, then TRAIN_STEPS
     timed steps and 3 profiled; every step launches each kernel once per
-    layer.  MFU only for the dense model (bench.py:387-390)."""
+    layer.  MFU only for the dense model (bench.py:387-390).  Returns the
+    timed steps' ms a step."""
     from cluster_anywhere_tpu_torch.models import make_train_step
 
     step, init_state = make_train_step(cfg)
@@ -1116,6 +1411,7 @@ def train_cell(torch, attn, cfg, tag="train"):
     log(f"[{tag}] serving weights after the profiled steps are the trained ones: {fresh}")
     check(fresh and not torch.equal(now, served),
           "compute_weights serves weights from before the optimizer steps")
+    return step_s * 1e3
 
 
 KERNEL_GROUPS = (  # (group, substrings of the kernel names it takes), first match wins
@@ -1243,6 +1539,17 @@ def compare_train_with_plain_attention(torch, attn, cfg, tag="train"):
     check(ok, "training gradients with the kernels disagree with the plain attention")
 
 
+def module_origin(name):
+    """Whether a module imports here, its version and where from."""
+    import importlib
+
+    try:
+        mod = importlib.import_module(name)
+    except ImportError as e:
+        return f"{name} does not import ({e})"
+    return f"{name} {getattr(mod, '__version__', '?')} from {os.path.dirname(mod.__file__)}"
+
+
 def main() -> int:
     import torch
 
@@ -1264,6 +1571,8 @@ def main() -> int:
     log(f"[env] runtime codecs: msgpack {'.'.join(map(str, msgpack.version))} ({codec}) from "
         f"{os.path.dirname(msgpack.__file__)}, cloudpickle {cloudpickle.__version__} from "
         f"{os.path.dirname(cloudpickle.__file__)}")
+    log(f"[env] the Data library's Arrow and pandas edges: {module_origin('pyarrow')}; "
+        f"{module_origin('pandas')}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     phase_build()
@@ -1280,7 +1589,7 @@ def main() -> int:
     out = run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms)
     server = phase_server(torch, attn, cfg)
     serving = launch_counts(attn)
-    phase_train(torch, attn)
+    train_ms = phase_train(torch, attn)
     launches = launch_counts(attn)  # ... and ends here
     log(f"[main path] launches (fwd, dQ, dK/dV): serving {serving}, in all {launches}")
     check_serving_launches("serving", serving)
@@ -1290,6 +1599,11 @@ def main() -> int:
     # launches that count, inside the replica's process
     replica_fwd = phase_serve_http(torch, attn, cfg, server)
     launches = (launches[0] + replica_fwd,) + launches[1:]
+    # the processor and train-data cells: the actor's launches read inside
+    # it, the train-data launches between zeroed counts
+    data = phase_data(torch, attn, cfg, train_ms)
+    log(f"[data paths] launches (fwd, dQ, dK/dV), the processor actor's included: {data}")
+    launches = tuple(map(sum, zip(launches, data)))
 
     # the MoE cells, each read between zeroed counts
     moe = moe_flagship()

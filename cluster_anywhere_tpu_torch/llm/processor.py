@@ -1,17 +1,15 @@
-"""The LLM inference worker and its configuration (counterpart of
-cluster_anywhere_tpu/llm/processor.py): tokenize, left-pad to a fixed
-prompt length, generate on the card, detokenize.
-
-The Data-library pipeline (`Processor`, `build_llm_processor`) is not
-ported yet (ROADMAP Queue 1 item 2b).  The config fields only it reads
-(batch_size, concurrency, apply_chat_template, system_prompt) are accepted
-and inert until then, as they are on the JAX package's serving path.
+"""Batch LLM inference on the Data library (counterpart of
+cluster_anywhere_tpu/llm/processor.py): `Processor` composes chat template
+-> inference -> postprocess as Data map stages, and the inference stage is
+`_InferenceWorker` in an actor pool, each actor holding the model on its GPU:
+tokenize, left-pad to a fixed prompt length, generate, detokenize.  The
+serving classes (serve_llm.py) reuse the worker in-process.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -67,20 +65,27 @@ class ModelSpec:
 class ProcessorConfig:
     model: ModelSpec = field(default_factory=ModelSpec)
     tokenizer: Any = None  # defaults to ByteTokenizer
-    # read by the Data library's Processor (not ported yet); inert when serving
-    batch_size: int = 8
-    concurrency: int = 1
+    batch_size: int = 8  # rows per inference call (a batch never spans two blocks)
+    concurrency: int = 1  # inference actors, one GPU each on the card
     max_prompt_len: int = 64
     max_new_tokens: int = 16
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
-    apply_chat_template: bool = False  # Processor only, as batch_size
-    system_prompt: str = ""  # Processor only, as batch_size
+    apply_chat_template: bool = False
+    system_prompt: str = ""
     # prefix/KV-cache reuse in ContinuousLLMServer: requests sharing a
     # system-prompt prefix skip its prefill (0 entries disables)
     prefix_cache_entries: int = 8
     prefix_block: int = 16
+
+
+def _gpus_for(device, num_gpus: Optional[float]) -> float:
+    """A worker on the card holds one GPU unless told otherwise; a CPU
+    worker holds none (CPU-pool workers see no GPU at all)."""
+    if num_gpus is not None:
+        return num_gpus
+    return 1.0 if device is None or str(device).startswith("cuda") else 0.0
 
 
 def load_model(cfg: ProcessorConfig, tcfg, device):
@@ -182,3 +187,72 @@ class _InferenceWorker:
         ):
             tid = int(tok[0])
             yield {"token_id": tid, "text": self.tok.decode([tid])}
+
+
+class Processor:
+    """Callable dataset -> dataset pipeline.  device: where each inference
+    actor runs the model (None means the card, one GPU per actor, and
+    raises at once without one; "cpu" runs the actors in CPU-pool workers).
+    On the card the run refuses a `concurrency` the cluster's GPUs cannot
+    hold before it starts an actor."""
+
+    def __init__(
+        self,
+        config: ProcessorConfig,
+        preprocess: Optional[Callable[[dict], dict]] = None,
+        postprocess: Optional[Callable[[dict], dict]] = None,
+        device=None,
+    ):
+        from .._device import resolve_device
+
+        resolve_device(device)
+        self.config = config
+        self.preprocess = preprocess
+        self.postprocess = postprocess
+        self.device = device
+
+    def __call__(self, dataset):
+        cfg = self.config
+        ds = dataset
+        if self.preprocess is not None:
+            ds = ds.map(self.preprocess)
+        if cfg.apply_chat_template:
+            system = cfg.system_prompt
+
+            # a closure travels by value: the CPU workers that run it never
+            # import this package's llm/ (whose __init__ loads torch)
+            def template(row):
+                prompt = row.get("prompt", "") if isinstance(row, dict) else str(row)
+                msgs = row.get("messages") if isinstance(row, dict) else None
+                if msgs:
+                    text = "".join(
+                        f"<|{m['role']}|>{m['content']}" for m in msgs
+                    ) + "<|assistant|>"
+                else:
+                    text = (f"<|system|>{system}" if system else "") + f"<|user|>{prompt}<|assistant|>"
+                out = dict(row)
+                out["prompt"] = text
+                return out
+
+            ds = ds.map(template)
+        ds = ds.map_batches(
+            _InferenceWorker,
+            fn_constructor_args=(cfg, self.device),
+            batch_size=cfg.batch_size,
+            concurrency=cfg.concurrency,
+            batch_format="numpy",
+            num_gpus=_gpus_for(self.device, None),
+        )
+        if self.postprocess is not None:
+            ds = ds.map(self.postprocess)
+        return ds
+
+
+def build_llm_processor(
+    config: ProcessorConfig,
+    preprocess: Optional[Callable[[dict], dict]] = None,
+    postprocess: Optional[Callable[[dict], dict]] = None,
+    *,
+    device=None,
+) -> Processor:
+    return Processor(config, preprocess, postprocess, device)

@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from .processor import ByteTokenizer, ProcessorConfig, _InferenceWorker, load_model
+from .processor import ByteTokenizer, ProcessorConfig, _gpus_for, _InferenceWorker, load_model
 
 
 def _parse_body(request) -> Dict[str, Any]:
@@ -67,14 +67,6 @@ class LLMServer:
         """Token-streaming twin of __call__: one {"token_id", "text"} per token."""
         body = _parse_body(request)
         yield from self.worker.stream(body.get("prompt", ""), **_sampling_overrides(body))
-
-
-def _gpus_for(device, num_gpus: Optional[float]) -> float:
-    """A replica on the card holds one GPU unless told otherwise; a CPU
-    replica holds none (CPU-pool workers see no GPU at all)."""
-    if num_gpus is not None:
-        return num_gpus
-    return 1.0 if device is None or str(device).startswith("cuda") else 0.0
 
 
 def build_llm_deployment(
