@@ -11,9 +11,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      (UTMALDG); hold each kernel to its plain PyTorch version on the card
      (causal and not, with and without pad, a pad across a key tile or
      over whole 128-row query blocks, T != T_kv, ragged T, fp32 and bf16,
-     an LSE cotangent, the flagship prefill and training shapes; O and the
-     gradients also row by row), and two calls of each kernel on the same
-     inputs to the same bits;
+     an LSE cotangent, the flagship prefill and training shapes, and the
+     blocks phase 7's ring and Ulysses attention give the kernels; O and
+     the gradients also row by row), and two calls of each kernel on the
+     same inputs to the same bits;
   2. time the kernels, their plain versions and torch's
      scaled_dot_product_attention forward and backward (the yardsticks; the
      port never calls them) at the flagship prefill and training shapes,
@@ -60,14 +61,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      attention twice: with each run routing on its own (the share of
      routes that agree is printed) and with the plain run's routes pinned
      to the kernel run's, which is held to the dense limits.
+  7. the parallel stack (parallel/, the sharded make_train_step): 4 ranks
+     spawned once, sharing the one card over gloo, run a probe (each
+     collective of the tensor plane on CUDA tensors, which of them stage
+     through host memory, quantized_psum's int8 error on a wq-sized
+     gradient) and then six cells at flagship width, each on a fresh
+     mesh: pp2 x tp2, ring sp2 x tp2, Ulysses sp4, MoE dp2 x ep2, MoE
+     pp2 x ep2 and fsdp2 x tp2 (MoE at capacity 4.0, no token dropped).
+     Each is held to the one-device step on the same weights and batch,
+     run in this process before the ranks start (step 1's loss to 1e-3,
+     every gathered gradient to 5e-2 relative L2; the MoE ranks' routes
+     pinned to the reference's, and the share of their own routes that
+     agree with it printed), its loss must fall over 4 steps, and
+     each kernel must launch inside the ranks; step ms, peak memory per
+     rank and the bytes each collective moved are printed (4 ranks on one
+     card: not a scaling number).  A rank that fails or hangs fails the
+     phase, and the others are killed.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
 kernel; the HTTP and processor cells launch nothing in the driver.
 Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
-replica's and the processor actor's included), the card's name and power
-limit, and as its last line
+replica's, the processor actor's and the parallel ranks' included), the
+card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
 
@@ -268,6 +285,19 @@ def row_errs(got, want):
     return errs
 
 
+# The attention blocks the parallel cells (phase 7) give the kernels, held
+# to the plain versions in phases 1 and 5: (name, B, T = T_kv, H, causal,
+# LSE cotangent).  Ring attention at T_local 1024 on a tp rank's 4 heads
+# runs an earlier shard's block (not causal) and the diagonal (causal),
+# each returning the LSE that merge_attention reads, so the backward gets
+# an LSE cotangent; Ulysses runs the whole sequence on an sp rank's 2 heads.
+PAR_ATTENTION_BLOCKS = (
+    ("ring past block B4 T1024 H4 D128 not causal", 4, 1024, 4, False, True),
+    ("ring diagonal block B4 T1024 H4 D128 causal", 4, 1024, 4, True, True),
+    ("ulysses B4 T2048 H2 D128 causal", 4, 2048, 2, True, False),
+)
+
+
 def phase_kernel_check(torch, attn, gen):
     cases = [
         # (B, T, T_kv, H, D, dtype, causal, pad of batch row 0)
@@ -328,6 +358,10 @@ def phase_kernel_check(torch, attn, gen):
         pad = None if pad0 is None else torch.tensor([pad0, 0], device="cuda")
         compare(f"B{b} T{t} Tkv{t_kv} H{h} D{d} causal={causal} pad={pad0}",
                 q, k, v, causal, pad, dtype)
+    for name, b, t, h, causal, _ in PAR_ATTENTION_BLOCKS:
+        q, k, v = (torch.randn((b, t, h, 128), generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        compare(name, q, k, v, causal, None, "bfloat16")
     q, k, v, pad = flagship_prefill_inputs(torch, gen)
     prefill_err = compare("flagship prefill B8 T512 H8 D128 causal pad", q, k, v, True, pad,
                           "bfloat16")
@@ -511,6 +545,10 @@ def phase_bwd_check(torch, attn, gen):
         pad = None if pad0 is None else torch.tensor([pad0, 0], device="cuda")
         compare(f"B{b} T{t} Tkv{t_kv} H{h} D{d} causal={causal} pad={pad0}",
                 q, k, v, do, causal, pad, dtype, with_dlse)
+    for name, b, t, h, causal, with_dlse in PAR_ATTENTION_BLOCKS:
+        q, k, v, do = (torch.randn((b, t, h, 128), generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        compare(name, q, k, v, do, causal, None, "bfloat16", with_dlse)
     q, k, v, do = flagship_train_attention_inputs(torch, gen)
     got, errs = compare("flagship training B8 T1024 H8 D128 causal", q, k, v, do, True, None,
                         "bfloat16", False)
@@ -1539,6 +1577,355 @@ def compare_train_with_plain_attention(torch, attn, cfg, tag="train"):
     check(ok, "training gradients with the kernels disagree with the plain attention")
 
 
+# ----------------------------------------------------------------- phase 7
+# The parallel stack: 4 ranks share the one H100 over gloo (NCCL refuses two
+# ranks on one device), spawned once, each cell on a fresh mesh.  Step
+# times are of 4 ranks sharing one card: not a scaling number.
+
+PAR_WORLD = 4
+PAR_TIMED = 3  # steps timed after the first (warm-up and compared) step
+PAR_CELLS = (  # (name, config overrides, mesh axes, B, T, reference)
+    ("par-A-pp2-tp2", dict(pp=2, num_microbatches=2), dict(pp=2, tp=2), 8, 1024, "dense"),
+    ("par-B-ring-sp2-tp2", dict(sp=2, attn_impl="ring"), dict(sp=2, tp=2), 4, 2048, "dense-2048"),
+    ("par-B-ulysses-sp4", dict(sp=4, attn_impl="ulysses"), dict(sp=4), 4, 2048, "dense-2048"),
+    ("par-C-ep2-dp2", dict(ep=2), dict(dp=2, ep=2), 8, 1024, "moe"),
+    ("par-D-pp2-ep2", dict(ep=2, pp=2, num_microbatches=2), dict(pp=2, ep=2), 8, 1024, "moe"),
+    ("par-E-fsdp2-tp2", dict(), dict(fsdp=2, tp=2), 8, 1024, "dense"),
+)
+# A capacity factor at which no token is dropped, in an ep group or on one
+# device, so the one-device reference computes the same function (JAX's
+# default 1.25 is held against JAX in tests/test_torch_parallel_model.py).
+# The other difference is the load-balance aux: a sharded MoE step takes
+# it per routing group (each ep group of rows, and each microbatch of it
+# through the pipeline), meaned over the groups, as JAX's shard_map does;
+# the reference takes its aux over the same groups (par_grouped_aux).
+PAR_CAPACITY = 4.0
+PAR_CELL_DEADLINE_S = 300
+PAR_TOL = {"loss_rel": 1e-3, "grad_rel_l2": 5e-2}  # phase 5's gradient bound
+
+
+def par_base_cfg(ref):
+    return (dataclasses.replace(moe_flagship(), capacity_factor=PAR_CAPACITY) if ref == "moe"
+            else flagship())
+
+
+def par_batch(torch, cfg, b, t):
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, t + 1))
+    return torch.from_numpy(ids).cuda()
+
+
+def par_ref_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parallel_ref")
+
+
+def par_ref_key(cell):
+    """The reference a cell is held to: its batch, and for MoE the number
+    of routing groups its aux is meaned over."""
+    _, over, axes, b, t, ref = cell
+    if ref != "moe":
+        return f"{ref}-B{b}-T{t}"
+    micro = over.get("num_microbatches", 1) if over.get("pp", 1) > 1 else 1
+    return f"{ref}-B{b}-T{t}-{axes.get('ep', 1) * micro}groups"
+
+
+@contextlib.contextmanager
+def par_grouped_aux(torch, groups):
+    """Inside, the model's MoE aux is the mean over `groups` equal runs of
+    tokens (in flat order) of each run's own aux, what the sharded step
+    computes; outputs and routes are the one-device moe_ffn's."""
+    from cluster_anywhere_tpu_torch.models import transformer as tf
+
+    real = tf.moe_ffn
+
+    def grouped(x, router_w, w_in, w_out, **kw):
+        r = real(x, router_w, w_in, w_out, **kw)
+        probs = torch.softmax(x @ router_w, dim=-1).reshape(groups, -1, router_w.shape[1])
+        onehot = probs.argmax(dim=-1)[..., None] == torch.arange(router_w.shape[1],
+                                                                 device=x.device)
+        aux = (onehot.to(probs.dtype).mean(dim=1) * probs.mean(dim=1)).sum(dim=-1).mean()
+        return r._replace(aux_loss=aux * router_w.shape[1])
+
+    tf.moe_ffn = grouped
+    try:
+        yield
+    finally:
+        tf.moe_ffn = real
+
+
+def par_references(torch):
+    """Each reference once on the card, one device (make_loss_fn with the
+    kernels; a MoE model's aux over the sharded step's routing groups):
+    step 1's loss and every gradient, and the MoE routes, saved under
+    build/parallel_ref/ for the ranks; nothing of it stays on the card."""
+    import gc
+
+    from cluster_anywhere_tpu_torch.models import init_params, make_loss_fn, to_jax_params
+
+    os.makedirs(par_ref_dir(), exist_ok=True)
+    for key, ref, b, t in sorted({(par_ref_key(c), c[5], c[3], c[4]) for c in PAR_CELLS}):
+        cfg = par_base_cfg(ref)
+        model = init_params(cfg, 0, device="cuda")
+        routes = []
+        groups = int(key.split("-")[-1][:-len("groups")]) if ref == "moe" else 1
+        with moe_routes(routes), par_grouped_aux(torch, groups):
+            loss = make_loss_fn(cfg)(model, {"ids": par_batch(torch, cfg, b, t)})
+            loss.backward()
+        grads = to_jax_params(model, grads=True)
+        torch.save({"loss": loss.item(), "grads": grads}, os.path.join(par_ref_dir(), f"{key}.pt"))
+        torch.save([r.cpu() for r in routes], os.path.join(par_ref_dir(), f"{key}.routes.pt"))
+        log(f"[parallel] reference {key} (one device): loss {loss.item():.6f}, "
+            f"{len(routes)} route calls")
+        del model, loss, routes, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def par_pinned_routes(torch, cfg, mesh, ref_routes, b, t):
+    """This rank's share of the reference's routes, in the order its
+    moe_ffn calls come: layer by layer, and for a pipeline stage its
+    microbatches in turn, each over its layers."""
+    from cluster_anywhere_tpu_torch.models import transformer as tf
+    from cluster_anywhere_tpu_torch.parallel.mesh import axis_index
+
+    plan = tf._Plan(cfg, mesh)
+    rows = plan.local_ids(torch.arange(b)[:, None])[:, 0].reshape(plan.micro, -1)
+    layers = range(cfg.n_layers)
+    if cfg.pp > 1:
+        first = axis_index(mesh, "pp") * cfg.layers_per_stage
+        layers = range(first, first + cfg.layers_per_stage)
+    return [ref_routes[layer].reshape(b, t)[mb].reshape(-1).cuda()
+            for mb in rows for layer in layers]
+
+
+def par_probe(torch, rank):
+    """Each collective of the tensor plane on a CUDA tensor over the 4
+    ranks, held to its value, and quantized_psum's int8 error on a
+    flagship-sized gradient (wq, 1024 x 1024) within sum_r scale_r / 2."""
+    from cluster_anywhere_tpu_torch.parallel import collectives as col
+    from cluster_anywhere_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(dp=PAR_WORLD), device="cuda", backend="gloo")
+    tp = col.tensor_plane
+    x = torch.arange(8, device="cuda", dtype=torch.float32) + 10 * rank
+    n = PAR_WORLD
+    ranks = torch.arange(n, device="cuda", dtype=torch.float32)
+    got = {
+        "allreduce": torch.equal(tp.allreduce(x, mesh, "dp"),
+                                 torch.arange(8, device="cuda") * n + 10 * ranks.sum()),
+        "allgather": torch.equal(tp.allgather(x, mesh, "dp"),
+                                 (torch.arange(8, device="cuda")[None] + 10 * ranks[:, None])
+                                 .reshape(-1)),
+        "reducescatter": torch.equal(tp.reducescatter(torch.ones(2 * n, device="cuda"), mesh, "dp"),
+                                     torch.full((2,), float(n), device="cuda")),
+        "all_to_all": torch.equal(tp.all_to_all(torch.full((n,), float(rank), device="cuda"),
+                                                mesh, "dp", 0, 0), ranks),
+        "permute": torch.equal(tp.permute(x, mesh, "dp", [(i, (i + 1) % n) for i in range(n)]),
+                               torch.arange(8, device="cuda") + 10 * ((rank - 1) % n)),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    g = torch.randn(1024, 1024, generator=gen, device="cuda") * 0.01
+    exact = tp.allreduce(g, mesh, "dp")
+    q = col.quantized_psum(g, mesh, "dp", "int8", 2048)
+    _, scale = col.quantize_int8(g, 2048)
+    bound = tp.allgather(scale, mesh, "dp", tiled=False).sum(dim=0) / 2  # per block
+    err = (q - exact).abs().reshape(-1, 2048).amax(dim=1)
+    worst = int((err / bound).argmax())
+    staged = {k: k in col.HOST_STAGED.get("gloo", ()) for k in col.KINDS}
+    return {"values": got, "staged": staged, "int8_err": err[worst].item(),
+            "int8_bound": bound[worst].item(), "int8_ok": bool((err <= bound + 1e-6).all())}
+
+
+def par_cell(torch, attn, rank, cell):
+    """One cell on this rank: a fresh mesh, the flagship (or its MoE
+    variant) from seed 0, one compared step and PAR_TIMED timed ones."""
+    from cluster_anywhere_tpu_torch.models import make_loss_fn, make_train_step, to_jax_params
+    from cluster_anywhere_tpu_torch.parallel import collectives as col
+    from cluster_anywhere_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    name, over, axes, b, t, ref = cell
+    cfg = dataclasses.replace(par_base_cfg(ref), **over)
+    mesh = make_mesh(MeshSpec(**axes), device="cuda", backend="gloo")
+    step, init_state = make_train_step(cfg, mesh)
+    model, opt = init_state(0)
+    batch = {"ids": par_batch(torch, cfg, b, t)}
+    routes, agree = [], None
+    if cfg.n_experts:
+        routes = par_pinned_routes(torch, cfg, mesh, torch.load(
+            os.path.join(par_ref_dir(), f"{par_ref_key(cell)}.routes.pt")), b, t)
+        # the sharded router on its own, on the same weights, held beside
+        # the reference's routes (the compared step below pins them)
+        own = []
+        with torch.no_grad(), moe_routes(own):
+            make_loss_fn(cfg, mesh)(model, batch)
+        agree = (route_agreement(own, routes), sum(r.numel() for r in own))
+    zero_launch_counts(attn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with moe_routes(routes, pin=True):
+        _, _, loss = step(model, opt, batch)
+    losses = [loss.item()]
+    grads = to_jax_params(model, grads=True)
+    out = {"rank": rank, "agree": agree}
+    if rank == 0:
+        refs = torch.load(os.path.join(par_ref_dir(), f"{par_ref_key(cell)}.pt"),
+                          weights_only=False)
+        worst_rel, worst_cos = (0.0, ""), (1.0, "")
+        want = refs["grads"]
+        for key in ("embed", "ln_f", "lm_head", *want["blocks"]):
+            gk = grads[key] if key in grads else grads["blocks"][key]
+            gw = want[key] if key in want else want["blocks"][key]
+            gk = torch.from_numpy(gk).double().reshape(gw.shape)
+            gw = torch.from_numpy(gw).double()
+            rel = ((gk - gw).norm() / gw.norm()).item()
+            cos = (gk.flatten() @ gw.flatten() / (gk.norm() * gw.norm())).item()
+            worst_rel, worst_cos = max(worst_rel, (rel, key)), min(worst_cos, (cos, key))
+        out.update(ref_loss=refs["loss"], worst_rel=worst_rel, worst_cos=worst_cos)
+        del refs, want
+    del grads
+    col.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        _, _, loss = step(model, opt, batch)
+        losses.append(loss.item())  # ends in a synchronize
+    step_ms = (time.perf_counter() - t0) / PAR_TIMED * 1e3
+    out.update(losses=losses, step_ms=step_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launch_counts(attn),
+               moved={k: v / PAR_TIMED for k, v in col.counts.moved.items()},
+               staged=col.counts.staged / PAR_TIMED)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_rank(rank, port, cells, results):
+    """A rank's life: join the group, the probe, then the cells in turn,
+    each result (or the traceback) put on `results`."""
+    import datetime
+    import faulthandler
+    import traceback
+
+    faulthandler.dump_traceback_later(PAR_CELL_DEADLINE_S * len(cells), exit=True)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(PAR_WORLD), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        import importlib
+
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=PAR_CELL_DEADLINE_S))
+        attn = importlib.import_module("cluster_anywhere_tpu_torch.ops.attention")
+        results.put(("probe", rank, par_probe(torch, rank)))
+        for cell in cells:
+            results.put((cell[0], rank, par_cell(torch, attn, rank, cell)))
+        dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails the phase
+        results.put(("error", rank, traceback.format_exc()))
+
+
+def phase_parallel(torch, attn):
+    """The parallel stack's cells on 4 ranks sharing the card over gloo.
+    Returns the ranks' kernel launches (fwd, dQ, dK/dV) summed."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    par_references(torch)
+    log(f"[parallel] this process's card memory before the ranks start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=par_rank, args=(r, port, PAR_CELLS, results), daemon=True)
+             for r in range(PAR_WORLD)]
+    for p in procs:
+        p.start()
+    launches = (0, 0, 0)
+    try:
+        for cell in ("probe",) + tuple(c[0] for c in PAR_CELLS):
+            got = {}
+            end = time.monotonic() + PAR_CELL_DEADLINE_S
+            while len(got) < PAR_WORLD:
+                try:
+                    tag, rank, value = results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode is not None]
+                    check(not dead, f"[parallel] a rank exited (codes {dead}) during {cell}")
+                    check(time.monotonic() < end, f"[parallel] {cell} passed its "
+                          f"{PAR_CELL_DEADLINE_S} s deadline; ranks done: {sorted(got)}")
+                    continue
+                check(tag != "error", f"[parallel] rank {rank} failed:\n{value}")
+                check(tag == cell, f"[parallel] rank {rank} sent {tag} while {cell} ran")
+                got[rank] = value
+            if cell == "probe":
+                launches = par_report_probe(got)
+            else:
+                launches = tuple(a + b for a, b in zip(launches, par_report_cell(cell, got)))
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    log(f"[parallel] launches inside the ranks, all cells (fwd, dQ, dK/dV): {launches}")
+    return launches
+
+
+def par_report_probe(got):
+    values = {k: all(got[r]["values"][k] for r in got) for k in got[0]["values"]}
+    staged = got[0]["staged"]
+    log(f"[parallel] probe, 4 ranks on one card over gloo, CUDA tensors: collectives right "
+        f"{values}; gloo runs directly {[k for k, v in staged.items() if not v]}, the "
+        f"collectives module stages through pinned host memory {[k for k, v in staged.items() if v]}")
+    q = got[0]
+    log(f"[parallel] quantized_psum int8 on a flagship wq gradient (1024 x 1024, blocks of 2048): "
+        f"in the block nearest its bound, max |int8 - exact psum| {q['int8_err']:.6g} against "
+        f"sum_r scale_r / 2 = {q['int8_bound']:.6g}")
+    check(all(values.values()), f"[parallel] a collective gave a wrong value on CUDA: {values}")
+    check(all(got[r]["int8_ok"] for r in got), "[parallel] quantized_psum int8 exceeds its bound")
+    return (0, 0, 0)
+
+
+def par_report_cell(cell, got):
+    r0 = got[0]
+    losses = r0["losses"]
+    loss_rel = abs(losses[0] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    step_ms = max(g["step_ms"] for g in got.values())
+    moved = {}
+    for g in got.values():
+        for k, v in g["moved"].items():
+            moved[k] = moved.get(k, 0) + v
+    staged = sum(g["staged"] for g in got.values())
+    launches = tuple(map(sum, zip(*(g["launches"] for g in got.values()))))
+    peaks = " ".join(f"{got[r]['peak_gb']:.2f}" for r in sorted(got))
+    log(f"[{cell}] 4 ranks sharing one H100 over gloo: step {step_ms:.2f} ms (slowest rank, "
+        f"{PAR_TIMED} steps after 1 warm-up; not a scaling number), peak memory per rank "
+        f"{peaks} GB; loss over "
+        f"{len(losses)} steps {' '.join(f'{x:.4f}' for x in losses)}; step 1 vs one device "
+        f"{losses[0]:.6f} vs {r0['ref_loss']:.6f} (relative {loss_rel:.3g}); worst gradient "
+        f"relative L2 {r0['worst_rel'][0]:.4g} ({r0['worst_rel'][1]}), lowest cosine "
+        f"{r0['worst_cos'][0]:.6f} ({r0['worst_cos'][1]}); tolerances {PAR_TOL}")
+    log(f"[{cell}] bytes a step, all ranks, by collective: "
+        f"{ {k: int(v) for k, v in sorted(moved.items())} }; staged through host memory "
+        f"{int(staged)}; kernel launches in the ranks (fwd, dQ, dK/dV) {launches}")
+    if r0["agree"] is not None:
+        n = sum(g["agree"][1] for g in got.values())
+        share = sum(g["agree"][0] * g["agree"][1] for g in got.values()) / n
+        log(f"[{cell}] the sharded router on its own (step 1's weights, routes unpinned): "
+            f"{share:.6f} of {n} routes agree with the one-device reference's (the compared step "
+            f"pins them; bf16 routes flip on near-ties)")
+    check(loss_rel <= PAR_TOL["loss_rel"], f"[{cell}] step 1's loss is off the reference's")
+    check(r0["worst_rel"][0] <= PAR_TOL["grad_rel_l2"], f"[{cell}] a gradient is off the reference's")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"[{cell}] loss did not fall: {losses}")
+    check(all(n > 0 for n in launches), f"[{cell}] a kernel did not launch in the ranks: {launches}")
+    return launches
+
+
 def module_origin(name):
     """Whether a module imports here, its version and where from."""
     import importlib
@@ -1629,6 +2016,15 @@ def main() -> int:
     del model, mmodel
     compare_train_with_plain_attention(torch, attn, flagship())
     compare_train_with_plain_attention(torch, attn, moe, "train-moe")
+
+    # the parallel stack, on ranks of their own: this process's models go first
+    del server, out, mout
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = phase_parallel(torch, attn)
+    launches = tuple(map(sum, zip(launches, par)))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -128,15 +128,26 @@ class DataIterator:
         stream, ``prefetch`` batches ahead of the one being consumed, so the
         next host-to-device copy overlaps the caller's work on the current
         batch; the caller's stream waits for a batch's copy when it gets
-        the batch."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded batches (sharding=) need the parallel stack's DTensor placements "
-                "(ROADMAP Queue 1 item 3)")
+        the batch.
+
+        ``sharding``: a placement from models.make_batch_sharding (a
+        parallel.sharding.NamedSharding) in place of ``device``: every
+        rank of its mesh iterates the same rows, and each tensor column
+        comes as a DTensor on the mesh's device holding this rank's block
+        (its rows, and its sequence slice on dim 1 when sp shards it), as
+        jax.device_put with a NamedSharding does in iter_jax_batches."""
         import torch
 
         from .._device import resolve_device
 
+        if sharding is not None:
+            from ..parallel.mesh import mesh_device
+            from ..parallel.sharding import NamedSharding, local_shard
+
+            if not isinstance(sharding, NamedSharding):
+                raise TypeError(f"sharding must be a parallel.sharding.NamedSharding (from "
+                                f"models.make_batch_sharding), not {type(sharding).__name__}")
+            device = mesh_device(sharding.mesh)
         dev = resolve_device(device)
         on_card = dev.type == "cuda"
         side = torch.cuda.Stream(dev) if on_card else None
@@ -175,7 +186,19 @@ class DataIterator:
                     if isinstance(t, torch.Tensor):
                         # memory made on the side stream is used on the caller's
                         t.record_stream(consumer)
-            return out
+            return out if sharding is None else {k: placed(v) for k, v in out.items()}
+
+        def placed(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            from torch.distributed.tensor import DTensor
+
+            if len(sharding.spec) > t.dim():
+                raise ValueError(f"sharding {sharding.spec} has more dims than a column of "
+                                 f"shape {tuple(t.shape)}")
+            return DTensor.from_local(local_shard(t, sharding.spec, sharding.mesh).contiguous(),
+                                      sharding.mesh, sharding.placements, run_check=False,
+                                      shape=t.shape, stride=t.stride())
 
         window: deque = deque()
         for batch in self.iter_batches(batch_size=batch_size, batch_format="numpy", **kw):

@@ -1,5 +1,5 @@
 """The flagship transformer for the port: config, weights, conversion from
-the JAX package's params, and the training step.  Prefill, decode and
+the JAX package's params, the training step, and its sharding on a mesh.  Prefill, decode and
 generation live in models.generate."""
 
 from .convert import from_jax_params, to_jax_params
@@ -9,8 +9,11 @@ from .transformer import (
     cross_entropy_loss,
     forward,
     init_params,
+    make_batch_sharding,
     make_loss_fn,
     make_train_step,
+    param_specs,
+    shard_params,
 )
 
 __all__ = [
@@ -21,6 +24,9 @@ __all__ = [
     "cross_entropy_loss",
     "make_loss_fn",
     "make_train_step",
+    "make_batch_sharding",
+    "param_specs",
+    "shard_params",
     "from_jax_params",
     "to_jax_params",
 ]

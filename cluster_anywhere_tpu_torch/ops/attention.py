@@ -13,7 +13,9 @@ tensor it runs the plain version, which computes what the kernel computes.
 When an input requires grad, `flash_attention` (and `attention`) go
 through `_FlashAttentionFn`, the counterpart of the JAX package's
 `custom_vjp`s: its backward is `flash_attention_bwd`, the two backward
-wrappers.  `merge_attention` is not ported yet.
+wrappers.  `merge_attention` combines two (O, LSE) partials over disjoint
+key sets, as ring attention needs; like the JAX package's it is plain
+tensor code, not a kernel.
 """
 
 from __future__ import annotations
@@ -382,6 +384,26 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
 
 
 flash_attention.launches = 0
+
+
+def merge_attention(o1, lse1, o2, lse2):
+    """Merge two normalized attention partials over disjoint key sets.
+
+    o: [B, T, H, D]; lse: [B, H, T] fp32.  Returns (o, lse) of the union,
+    the streaming-softmax combine that lets ring attention run flash per
+    block.  An LSE of -1e30 marks a row that saw no keys: it gets weight
+    0, and where both sides are -1e30 the result is O = 0, LSE = -1e30."""
+    m = torch.maximum(lse1, lse2)
+    zero = torch.zeros_like(m)
+    w1 = torch.where(lse1 == NEG_INF, zero, torch.exp(lse1 - m))
+    w2 = torch.where(lse2 == NEG_INF, zero, torch.exp(lse2 - m))
+    tot = w1 + w2
+    tot_safe = torch.where(tot == 0.0, torch.ones_like(tot), tot)
+    w1t = (w1 / tot_safe).permute(0, 2, 1)[..., None].to(o1.dtype)
+    w2t = (w2 / tot_safe).permute(0, 2, 1)[..., None].to(o2.dtype)
+    o = o1 * w1t + o2 * w2t
+    lse = m + torch.log(tot_safe)
+    return o, torch.where(tot == 0.0, torch.full_like(lse, NEG_INF), lse)
 
 
 def attention(q, k, v, causal: bool = True, scale: Optional[float] = None, pad=None):

@@ -1,6 +1,6 @@
 """The port's configs accept every field of the JAX package's configs, and
-the serving classes' Serve hook: TransformerConfig's parallel-stack fields
-run at their one-device values and are refused by name otherwise, remat
+the serving classes' Serve hook: TransformerConfig takes the parallel-stack
+fields with the JAX package's checks, remat
 and attn_impl work in the training forward, ProcessorConfig takes the Data
 fields, and LLMServer.reconfigure sets the sampling defaults.
 
@@ -75,13 +75,42 @@ def test_one_device_values_are_accepted(field, value):
     assert getattr(spec.transformer_config(259), field) == value
 
 
+def _raised(fn):
+    """The type of the exception fn() raises, or None."""
+    try:
+        fn()
+    except Exception as e:  # the outcome is what the test compares
+        return type(e)
+    return None
+
+
 @pytest.mark.parametrize("field, value", [
     ("pp", 2), ("sp", 2), ("num_microbatches", 4), ("attn_impl", "ring"),
     ("attn_impl", "ulysses"), ("ep", 2),
 ])
 def test_parallel_values_are_refused_naming_the_roadmap_item(field, value):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 3"):
-        ttf.TransformerConfig(**TINY, **{field: value})
+    """The parallel stack is ported: each parallel value the JAX package
+    takes is accepted (through config_overrides too), with JAX's derived
+    values, and a forward without a mesh raises exactly where JAX's does
+    (pp and manual sp need one; the test's name is from before the port)."""
+    cfg = ttf.TransformerConfig(**TINY, **{field: value})
+    jcfg = jtf.TransformerConfig(**TINY, **{field: value})
+    assert getattr(cfg, field) == value
+    assert cfg.resolved_attn() == jcfg.resolved_attn()
+    assert cfg.layers_per_stage == jcfg.layers_per_stage
+    spec = tproc.ModelSpec(preset="tiny", config_overrides={field: value})
+    assert getattr(spec.transformer_config(259), field) == value
+    ids = _ids(b=2, t=8)[:, :-1]
+    want = _raised(lambda: jtf.forward(jtf.init_params(jax.random.key(0), jcfg), ids, jcfg))
+    got = _raised(lambda: ttf.forward(ttf.init_params(cfg, 0, device="cpu"),
+                                      torch.tensor(ids).long()))
+    assert got is want and want in (None, ValueError), (got, want)
+
+
+def test_layers_per_stage_check_raises_as_in_jax():
+    for pkg in (jtf, ttf):
+        with pytest.raises(ValueError, match="not divisible by pp 3"):
+            pkg.TransformerConfig(**TINY, pp=3).layers_per_stage
 
 
 def test_unknown_attn_impl_is_a_value_error():

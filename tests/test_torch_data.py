@@ -389,7 +389,9 @@ def test_iter_torch_batches_defaults_to_the_card(cluster, monkeypatch):
 
 
 def test_iter_torch_batches_refuses_a_sharding(cluster):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """sharding= takes the port's batch placement
+    (models.make_batch_sharding); anything else is a TypeError."""
+    with pytest.raises(TypeError, match="make_batch_sharding"):
         next(iter(cad.range(4).iter_torch_batches(batch_size=2, device="cpu", sharding=object())))
 
 

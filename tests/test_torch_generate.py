@@ -73,11 +73,15 @@ def test_init_params_seeded_and_scaled():
 
 
 def test_expert_parallel_config_refused():
-    """MoE runs with all experts on one device (ep = 1); ep > 1 needs the
-    all_to_all exchange of the parallel stack, which is not ported."""
+    """ep = 2 builds, and needs a mesh: the experts' all_to_all exchange
+    runs over the mesh's ep ranks, so a forward without one raises (the
+    test's name is from before the parallel stack was ported)."""
     assert ttf.TransformerConfig(**WIDTHS, n_experts=4).ep == 1
-    with pytest.raises(NotImplementedError, match="parallel-stack"):
-        ttf.TransformerConfig(**WIDTHS, n_experts=4, ep=2)
+    cfg = ttf.TransformerConfig(**WIDTHS, n_experts=4, ep=2)
+    model = ttf.init_params(cfg, 0, device="cpu")
+    assert cfg.ep == 2 and model.blocks[0].w_in.shape[0] == 4
+    with pytest.raises(ValueError, match="mesh required"):
+        ttf.forward(model, torch.zeros((1, 4), dtype=torch.long))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -198,10 +198,24 @@ def test_generate_after_train_step_serves_the_new_weights(foreach):
     assert torch.equal(got, want)
 
 
-def test_train_step_refuses_a_mesh():
+def test_train_step_refuses_a_mesh(tmp_path):
+    """A mesh must span the process group: one of 2 ranks in a world of 1
+    raises (the sharded step itself is tests/test_torch_parallel_model.py's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from cluster_anywhere_tpu_torch.parallel.mesh import AXES
+
     cfg = ttf.TransformerConfig(**TINY, dtype="float32")
-    with pytest.raises(NotImplementedError):
-        ttf.make_train_step(cfg, mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 1, 1, 2, 1, 1), mesh_dim_names=AXES,
+                          _init_backend=False)
+        with pytest.raises(ValueError, match="a mesh spans every rank"):
+            ttf.make_train_step(cfg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_entry_points_default_to_the_card():
