@@ -77,13 +77,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      rank and the bytes each collective moved are printed (4 ranks on one
      card: not a scaling number).  A rank that fails or hangs fails the
      phase, and the others are killed.
+  8. the Train library, on a session of the port's runtime of its own:
+     train-lib, TorchTrainer(...).fit() with one GPU worker training the
+     flagship from seed 0 on the train-data cell's rows (cad.from_numpy,
+     get_dataset_shard(...).iter_torch_batches) for 12 steps, saving
+     params and AdamW state (Checkpoint.save_pytree, keep 2) after steps 6
+     and 12 (step 1's loss to 1e-6 of the train-data cell's, the loss
+     falling, 8 launches of each kernel a step counted inside the worker,
+     none in the driver); the same fit failing once after step 9, which the
+     controller restarts from step 6's checkpoint (steps 7-12 to 1e-6 of
+     the first fit's, Result.checkpoint's params bit-equal to the
+     worker's); train-lib-fsdp, 4 workers at 0.25 GPU on one fsdp2 x tp2
+     mesh over TorchConfig's gloo group, 5 steps with save_pytree_sharded
+     after step 4, then 2 workers on fsdp2 resuming from it (step 5's loss
+     to 1e-3 of the 4-worker run's); and the host collective groups' probe
+     (4 actors, every op on a CUDA tensor of 1024 x 1024, f32 equal to the
+     driver's to the bit, int8 within its bound).  Under one watchdog.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
 kernel; the HTTP and processor cells launch nothing in the driver.
 Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
-replica's, the processor actor's and the parallel ranks' included), the
+replica's, the processor actor's, the parallel ranks' and the Train
+workers' included), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -414,10 +431,11 @@ def time_cold_in_turn(torch, fns, reps=31, warmup_s=1.0, hide_launch=True):
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def gpu_clocks():
-    """The SM clock and its maximum, as nvidia-smi reads them now."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+def gpu_clocks(query="clocks.sm,clocks.max.sm"):
+    """The SM clock and its maximum (or another query), as nvidia-smi reads
+    them now."""
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
     return smi.stdout.strip() if smi.returncode == 0 else f"not read ({smi.stderr.strip()})"
 
 
@@ -1260,7 +1278,7 @@ def phase_processor(torch, attn, cfg):
 def phase_train_data(torch, attn, cfg, train_ms):
     """The train-data cell: the train cell's step fed by
     cad.from_numpy(ids).iter_torch_batches (the card, prefetch 1).  Returns
-    the cell's launches (fwd, dQ, dK/dV)."""
+    the cell's launches (fwd, dQ, dK/dV), step 1's loss and the step ms."""
     import cluster_anywhere_tpu_torch.data as cad
     from cluster_anywhere_tpu_torch.models import make_train_step
 
@@ -1316,14 +1334,14 @@ def phase_train_data(torch, attn, cfg, train_ms):
     check(all(np.isfinite(losses)), f"non-finite train-data loss: {losses}")
     check(launches == (cfg.n_layers * n,) * 3,
           f"the train-data cell launched (fwd, dQ, dK/dV) {launches}, want {cfg.n_layers * n} each")
-    return launches
+    return launches, losses[0], step_ms
 
 
 def phase_data(torch, attn, cfg, train_ms):
     """The processor and train-data cells on one session of the port's
     runtime (ca.init detects the GPU); no process of it left after
     shutdown.  Returns their launches (fwd, dQ, dK/dV), the actor's
-    included."""
+    included, and the train-data cell's step 1 loss and step ms."""
     import cluster_anywhere_tpu_torch as ca
     from cluster_anywhere_tpu_torch.core import api
     from cluster_anywhere_tpu_torch.util import state
@@ -1334,7 +1352,7 @@ def phase_data(torch, attn, cfg, train_ms):
         check(info["resources"].get("GPU") == 1.0,
               f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
         actor_fwd = phase_processor(torch, attn, cfg)
-        train = phase_train_data(torch, attn, cfg, train_ms)
+        train, train_loss, train_data_ms = phase_train_data(torch, attn, cfg, train_ms)
         pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
     finally:
         ca.shutdown()
@@ -1344,7 +1362,7 @@ def phase_data(torch, attn, cfg, train_ms):
         alive = [p for p in alive if _pid_alive(p)]
         time.sleep(0.2)
     check(not alive, f"processes of the port's session still alive after shutdown: {alive}")
-    return (train[0] + actor_fwd,) + train[1:]
+    return (train[0] + actor_fwd,) + train[1:], train_loss, train_data_ms
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1926,6 +1944,533 @@ def par_report_cell(cell, got):
     return launches
 
 
+# ----------------------------------------------------------------- phase 8
+# The Train library: TorchTrainer(...).fit() from GPU workers that the
+# runtime starts, on a session of its own.  The loops are closures (they
+# travel to the workers by value: no package module holds a train loop).
+
+TL_STEPS, TL_CKPT_EVERY, TL_FAIL_AFTER = 12, 6, 9  # train-lib: steps, save after 6 and 12, fail after 9
+TL_FSDP_STEPS, TL_FSDP_CKPT = 5, 4  # train-lib-fsdp: steps, the sharded save after step 4
+TL_DEADLINE_S = 900  # the whole phase, under one watchdog
+HOST_PROBE_WORLD, HOST_PROBE_REPS = 4, 5
+TL_TOL = {"step1_rel": 1e-6, "resume_rel": 1e-6, "reshard_rel": 1e-3}
+
+
+def train_lib_loops():
+    """(one-device loop, sharded loop) for TorchTrainer, nested so that
+    they travel by value.  Both report every step's loss, step ms and the
+    flash kernels' launches counted inside the worker; the one-device loop
+    resumes from train.get_checkpoint() (Checkpoint.save_pytree of
+    models.train_state) and can fail once after a given step (a marker
+    file in config); the sharded loop builds its mesh on the torch.distributed
+    group TorchConfig made and saves with save_pytree_sharded."""
+
+    def launches():
+        import importlib
+
+        attn = importlib.import_module("cluster_anywhere_tpu_torch.ops.attention")
+        return (attn.flash_attention.launches, attn.flash_bwd_dq.launches,
+                attn.flash_bwd_dkv.launches)
+
+    def digest(tree):
+        import hashlib
+
+        from cluster_anywhere_tpu_torch.train.checkpoint import tree_flatten
+
+        h = hashlib.sha256()
+        for leaf in tree_flatten(tree)[0]:
+            h.update(leaf.detach().cpu().numpy().tobytes() if hasattr(leaf, "detach")
+                     else leaf.tobytes())
+        return h.hexdigest()
+
+    def single(config):
+        import os
+        import shutil
+        import time
+
+        import torch
+
+        from cluster_anywhere_tpu_torch import train
+        from cluster_anywhere_tpu_torch.models import load_train_state, make_train_step, train_state
+
+        t_start = time.time()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ctx = train.get_context()
+        cfg, dev = config["cfg"], config["device"]
+        step, init_state = make_train_step(cfg, device=dev)
+        model, opt = init_state(config["seed"])
+        start, load_s = 0, 0.0
+        ck = train.get_checkpoint()
+        if ck is not None:
+            t0 = time.perf_counter()
+            tree = ck.load_pytree()
+            load_train_state(model, opt, tree)
+            start = int(tree["opt"]["count"])
+            load_s = time.perf_counter() - t0
+        shard = train.get_dataset_shard("train")
+
+        def batches():
+            while True:  # epochs: 88 rows give 11 batches of 8
+                for b in shard.iter_torch_batches(batch_size=config["batch_size"], device=dev):
+                    yield b["data"]
+
+        it = batches()
+        for _ in range(start):  # the data position of the checkpoint's step
+            next(it)
+        build_s = time.time() - t_start
+        for s in range(start + 1, config["steps"] + 1):
+            ids = next(it)
+            before = launches()
+            t0 = time.perf_counter()
+            _, _, loss = step(model, opt, {"ids": ids})
+            loss = loss.item()  # ends in a synchronize
+            step_ms = (time.perf_counter() - t0) * 1e3
+            metrics = {"step": s, "loss": loss, "step_ms": step_ms, "attempt": ctx.attempt,
+                       "launches": [a - b for a, b in zip(launches(), before)],
+                       "t_start": t_start, "build_s": build_s, "load_s": load_s}
+            ckpt = None
+            if s % config["ckpt_every"] == 0:
+                ckpt = train.Checkpoint(train.make_temp_checkpoint_dir())
+                t0 = time.perf_counter()
+                ckpt.save_pytree(train_state(model, opt))
+                metrics["save_ms"] = (time.perf_counter() - t0) * 1e3
+                metrics["save_bytes"] = os.path.getsize(os.path.join(ckpt.path, "state.npz"))
+            t0 = time.perf_counter()
+            train.report(metrics, checkpoint=ckpt)
+            if ckpt is not None:
+                metrics["report_ms"] = (time.perf_counter() - t0) * 1e3
+                shutil.rmtree(ckpt.path)
+                train.report({"step": s, "report_ms": metrics["report_ms"], "attempt": ctx.attempt})
+            if s == config.get("fail_after") and not os.path.exists(config["marker"]):
+                with open(config["marker"], "w") as f:
+                    f.write(repr(time.time()))
+                raise RuntimeError(f"injected failure after step {s}")
+        train.report({"done": True, "params_sha256": digest(train_state(model, opt)["params"]),
+                      "attempt": ctx.attempt})
+
+    def sharded(config):
+        import time
+
+        import torch
+        import torch.distributed as dist
+
+        from cluster_anywhere_tpu_torch import train
+        from cluster_anywhere_tpu_torch.models import (load_train_state, make_train_step, train_state,
+                                                       train_state_specs)
+        from cluster_anywhere_tpu_torch.parallel.mesh import MeshSpec, make_mesh, mesh_device
+
+        t_start = time.time()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg, dev = config["cfg"], config["device"]
+        mesh = make_mesh(MeshSpec(**config["axes"]), device=dev, backend="gloo")
+        step, init_state = make_train_step(cfg, mesh)
+        model, opt = init_state(config["seed"])
+        specs = train_state_specs(cfg)
+        start = 0
+        ck = train.get_checkpoint()
+        if ck is not None:
+            load_train_state(model, opt, ck.load_pytree_sharded(mesh=mesh, specs=specs))
+            start = int(float(opt.state[model.embed]["step"]))
+        ids = torch.tensor(config["ids"], device=mesh_device(mesh))  # every rank: the whole batch
+        build_s = time.time() - t_start
+        for s in range(start + 1, config["steps"] + 1):
+            before = launches()
+            t0 = time.perf_counter()
+            _, _, loss = step(model, opt, {"ids": ids})
+            loss = loss.item()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            got = torch.tensor([a - b for a, b in zip(launches(), before)], dtype=torch.int64)
+            dist.all_reduce(got)  # every rank's launches, summed (only rank 0's reports count)
+            metrics = {"step": s, "loss": loss, "step_ms": step_ms, "launches": got.tolist(),
+                       "world": dist.get_world_size(), "build_s": build_s}
+            ckpt = None
+            if s == config.get("ckpt_at"):
+                ckpt = train.Checkpoint(train.shared_checkpoint_dir(s))
+                t0 = time.perf_counter()
+                ckpt.save_pytree_sharded(train_state(model, opt), mesh=mesh, specs=specs)
+                dist.barrier()
+                metrics["save_ms"] = (time.perf_counter() - t0) * 1e3
+            train.report(metrics, checkpoint=ckpt)
+
+    return single, sharded
+
+
+def tl_run(loop, config, scaling, storage, name, **kw):
+    """One TorchTrainer fit; returns (result, wall s, fit start on the
+    host's clock)."""
+    from cluster_anywhere_tpu_torch import train
+
+    t0 = time.time()
+    result = train.TorchTrainer(
+        loop, train_loop_config=config, scaling_config=scaling,
+        run_config=train.RunConfig(name=name, storage_path=storage,
+                                   checkpoint_config=kw.pop("checkpoint_config", None)
+                                   or train.CheckpointConfig(),
+                                   failure_config=kw.pop("failure_config", None)
+                                   or train.FailureConfig()),
+        **kw).fit()
+    return result, time.time() - t0, t0
+
+
+def tl_steps(history, attempt=None):
+    """The step reports of a metrics history (of one attempt)."""
+    return [m for m in history if "loss" in m and (attempt is None or m.get("attempt") == attempt)]
+
+
+def tl_single_cells(cfg, ids, device, use_gpu, storage):
+    """The train-lib cell: one fit of TL_STEPS steps (saves after every
+    TL_CKPT_EVERY, keep 2), then the same fit failing once after
+    TL_FAIL_AFTER steps, which the controller restarts from the last
+    checkpoint.  Returns what the checks and logs need."""
+    import cluster_anywhere_tpu_torch.data as cad
+    from cluster_anywhere_tpu_torch import train
+
+    single, _ = train_lib_loops()
+    marker = os.path.join(storage, "fail_once")
+    config = {"cfg": cfg, "device": device, "seed": 0, "steps": TL_STEPS, "batch_size": TRAIN_B,
+              "ckpt_every": TL_CKPT_EVERY, "marker": marker}
+    scaling = train.ScalingConfig(num_workers=1, use_gpu=use_gpu)
+    keep2 = train.CheckpointConfig(num_to_keep=2)
+    first, first_s, first_t0 = tl_run(single, config, scaling, storage, "train-lib",
+                                      datasets={"train": cad.from_numpy(ids)},
+                                      checkpoint_config=keep2)
+    again, again_s, _ = tl_run(single, dict(config, fail_after=TL_FAIL_AFTER), scaling, storage,
+                               "train-lib-resume", datasets={"train": cad.from_numpy(ids)},
+                               checkpoint_config=keep2,
+                               failure_config=train.FailureConfig(max_failures=1))
+    with open(marker) as f:
+        t_fail = float(f.read())
+    return {"first": first, "first_s": first_s, "first_t0": first_t0, "again": again,
+            "again_s": again_s, "t_fail": t_fail}
+
+
+def tl_fsdp_cells(cfg, ids, device, use_gpu, storage):
+    """The train-lib-fsdp cell: 4 workers on one fsdp2 x tp2 mesh over a
+    gloo group (TorchConfig), TL_FSDP_STEPS steps with save_pytree_sharded
+    after TL_FSDP_CKPT; then 2 workers on an fsdp2 mesh resume from it
+    (load_pytree_sharded: a reshard onto another world) and take the next
+    step."""
+    from cluster_anywhere_tpu_torch import train
+
+    _, sharded = train_lib_loops()
+    config = {"cfg": cfg, "device": device, "seed": 0, "steps": TL_FSDP_STEPS,
+              "ckpt_at": TL_FSDP_CKPT, "ids": ids, "axes": {"fsdp": 2, "tp": 2}}
+    four, four_s, _ = tl_run(sharded, config,
+                             train.ScalingConfig(num_workers=4, use_gpu=use_gpu,
+                                                 gpus_per_worker=0.25),
+                             storage, "train-lib-fsdp",
+                             backend_config=train.TorchConfig(backend="gloo"))
+    two, two_s, _ = tl_run(sharded, dict(config, ckpt_at=None, axes={"fsdp": 2}),
+                           train.ScalingConfig(num_workers=2, use_gpu=use_gpu, gpus_per_worker=0.5),
+                           storage, "train-lib-fsdp-resume",
+                           backend_config=train.TorchConfig(backend="gloo"),
+                           resume_from_checkpoint=four.checkpoint)
+    return {"four": four, "four_s": four_s, "two": two, "two_s": two_s}
+
+
+def host_probe_rank_cls():
+    """The host-group probe's actor class, nested so that it travels by value."""
+    from cluster_anywhere_tpu_torch.parallel import collectives as coll
+
+    class ProbeRank(coll.CollectiveActorMixin):
+        def run(self, rank, n, shape, device, reps):
+            import time
+
+            import torch
+
+            from cluster_anywhere_tpu_torch.parallel import collectives as coll
+
+            g = coll.get_group()
+            gen = torch.Generator(device=device).manual_seed(rank)
+            x = torch.randn(*shape, generator=gen, device=device)
+            ops = {
+                "allreduce": lambda: coll.allreduce(x),
+                "allreduce_int8": lambda: coll.allreduce(x, quantize="int8"),
+                "allgather": lambda: coll.allgather(x),
+                "reducescatter": lambda: coll.reducescatter(x),
+                "broadcast": lambda: coll.broadcast(x, src_rank=0),
+                # recv has no tensor to take a device from: it gives numpy
+                "sendrecv": lambda: (coll.send(x, (rank + 1) % n), torch.from_numpy(
+                    coll.recv((rank - 1) % n)).to(x.device))[1],
+            }
+            out, ms, sent = {}, {}, {}
+            coll.barrier()  # the peers' addresses resolve here
+            for name, op in ops.items():
+                times = []
+                for _ in range(reps):
+                    coll.barrier()
+                    b0 = g.sent_bytes
+                    t0 = time.perf_counter()
+                    got = op()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    sent[name] = g.sent_bytes - b0
+                ms[name] = sorted(times)[len(times) // 2]
+                got = got if isinstance(got, list) else [got]
+                out[name] = {"device": str(got[0].device),
+                             "value": [t.cpu().numpy() for t in got]}
+            return {"x": x.cpu().numpy(), "out": out, "ms": ms, "sent": sent}
+
+    return ProbeRank
+
+
+def host_ring_reference(xs, quantize, block):
+    """What the ring allreduce of xs (one array a rank) gives, op by op as
+    P2PCollectiveGroup runs it (chunk c starts at rank c and gathers the
+    ranks after it; int8 requantizes the partial sum at every hop and the
+    reduced chunk once), and with int8 the per-element bound of the JAX
+    docstring summed over those quantizations: max|block| / 254 each, plus
+    the float rounding of the adds."""
+    from cluster_anywhere_tpu_torch.parallel import collectives as coll
+
+    n = len(xs)
+    chunks = [np.array_split(x.reshape(-1).astype(np.float32), n) for x in xs]
+    out, bound = [], []
+
+    def q(a):
+        payload, meta = coll.quantize_chunk(a, "int8", block)
+        nb = -(-a.size // block)
+        pad = np.zeros(nb * block, np.float32)
+        pad[:a.size] = np.abs(a)
+        step = np.repeat(pad.reshape(nb, block).max(axis=1) / 254, block)[:a.size]
+        return coll.dequantize_chunk(payload, meta), step
+
+    for c in range(n):
+        acc, b = chunks[c][c], np.zeros(chunks[c][c].size, np.float32)
+        for k in range(1, n):
+            if quantize:
+                acc, step = q(acc)
+                b += step
+            acc = chunks[(c + k) % n][c] + acc
+        if quantize:
+            acc, step = q(acc)
+            b += step
+        out.append(acc)
+        bound.append(b)
+    shape = xs[0].shape
+    mag = sum(np.abs(x.astype(np.float64)) for x in xs).reshape(-1)
+    return (np.concatenate(out).reshape(shape),
+            (np.concatenate(bound) * (1 + 1e-5) + n * 2.0 ** -24 * mag).reshape(shape))
+
+
+def host_group_probe(device):
+    """4 actors in one "host" collective group (on the card: 0.25 GPU
+    each), each op on a tensor of wq's size on `device`; every result held
+    to the driver's own: f32 to the bit (the ring's order of adds
+    replayed), int8 to the bit and within its bound.  Returns ({op: ms},
+    {op: bytes a rank sent}, the int8 error and bound in the block nearest
+    it)."""
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch.core.config import get_config
+    from cluster_anywhere_tpu_torch.parallel import collectives as coll
+
+    n = HOST_PROBE_WORLD
+    gpus = {"num_gpus": 0.25} if device == "cuda" else {}
+    rank_cls = ca.remote(host_probe_rank_cls()).options(num_cpus=0.5, **gpus)
+    ranks = [rank_cls.remote() for _ in range(n)]
+    try:
+        coll.create_collective_group(ranks, n, list(range(n)), backend="host")
+        got = ca.get([r.run.remote(i, n, (1024, 1024), device, HOST_PROBE_REPS)
+                      for i, r in enumerate(ranks)], timeout=600)
+        coll.destroy_group_on(ranks)
+    finally:
+        for r in ranks:
+            ca.kill(r)
+    xs = [g["x"] for g in got]
+    block = int(get_config().collective_quant_block)
+    f32, _ = host_ring_reference(xs, None, block)
+    int8, bound = host_ring_reference(xs, "int8", block)
+    exact = sum(x.astype(np.float64) for x in xs)
+    want = {"allreduce": [f32], "allreduce_int8": [int8], "allgather": xs,
+            "reducescatter": None, "broadcast": [xs[0]], "sendrecv": None}
+    for r, g in enumerate(got):
+        out = g["out"]
+        # each actor sees its card as device 0
+        check(all(o["device"] == ("cuda:0" if device == "cuda" else device) for o in out.values()),
+              f"[host-groups] rank {r} got results on {[o['device'] for o in out.values()]}")
+        rs = np.array_split(f32.reshape(-1), n)[r]
+        for name, values in out.items():
+            w = {"reducescatter": [rs], "sendrecv": [xs[(r - 1) % n]]}.get(name, want[name])
+            check(len(values["value"]) == len(w) and all(
+                np.array_equal(a, b.reshape(a.shape)) for a, b in zip(values["value"], w)),
+                  f"[host-groups] rank {r}: {name} differs from the driver's")
+    err = np.abs(int8.astype(np.float64) - exact)
+    check(bool((err <= bound).all()), "[host-groups] int8 allreduce exceeds its bound")
+    worst = np.unravel_index(np.argmax(err / bound), err.shape)
+    return got[0]["ms"], got[0]["sent"], float(err[worst]), float(bound[worst])
+
+
+def phase_train_lib(torch, attn, ref):
+    """The Train library's cells on a session of the port's runtime of
+    their own (ca.init detects the GPU): train-lib and its failure and
+    resume, train-lib-fsdp and its reshard onto 2 workers, and the host
+    collective groups' probe, under one watchdog, each checked and logged
+    as it ends; no process of the session left after shutdown.  `ref`
+    holds the train and train-data cells' numbers from this call.  Returns
+    the workers' kernel launches (fwd, dQ, dK/dV)."""
+    import shutil
+
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.util import state
+
+    cfg = flagship()
+    n = TRAIN_STEPS + 1  # the train-data cell's rows: 88 x 1025
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B * n, TRAIN_T + 1))
+    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1))
+    storage = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_lib")
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    info = ca.init(num_cpus=6)
+    try:
+        check(info["resources"].get("GPU") == 1.0,
+              f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
+        with watchdog(TL_DEADLINE_S, "the Train library phase"):
+            zero_launch_counts(attn)
+            launches = tl_report_single(tl_single_cells(cfg, ids, None, True, storage), cfg, ref,
+                                        launch_counts(attn))
+            fsdp = tl_report_fsdp(tl_fsdp_cells(cfg, batch, None, True, storage))
+            launches = tuple(a + b for a, b in zip(launches, fsdp))
+            driver = launch_counts(attn)
+            host_probe_report(*host_group_probe("cuda"))
+        pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+    except BaseException:
+        print_session_errors(api._session_dir)
+        raise
+    finally:
+        ca.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.2)
+    check(not alive, f"processes of the Train session still alive after shutdown: {alive}")
+    log(f"[train-lib] phase 8 in {time.perf_counter() - t_phase:.1f} s on "
+        f"{gpu_clocks('name,power.limit')}; workers' launches (fwd, dQ, dK/dV) {launches}, the "
+        f"driver's {driver}")
+    check(driver == (0, 0, 0), f"the driver launched kernels during the Train fits: {driver}")
+    return launches
+
+
+def print_session_errors(session_dir, lines=40):
+    """To stderr: each session log's lines from its first traceback or
+    error on (what a worker that died said before it went)."""
+    import glob
+
+    for path in sorted(glob.glob(os.path.join(session_dir or "", "*.log"))):
+        with open(path, errors="replace") as f:
+            text = f.read().splitlines()
+        first = next((i for i, ln in enumerate(text) if "Traceback" in ln or "Error" in ln), None)
+        if first is not None:
+            print(f"--- {path} ---", *text[max(0, first - 2):first + lines], sep="\n",
+                  file=sys.stderr)
+
+
+def host_probe_report(ms, sent, err, bound):
+    log(f"[host-groups] 4 actors (0.25 GPU each) in one 'host' collective group, a CUDA tensor "
+        f"of 1024 x 1024 fp32 each (copied to the host by the group, results back on the card): "
+        f"median ms of {HOST_PROBE_REPS} " + ", ".join(
+            f"{k} {ms[k]:.3f} ms / {sent[k]} B sent a rank" for k in ms)
+        + f"; f32 results equal to the driver's (the ring's adds replayed) bit for bit; int8 "
+        f"allreduce equal to the driver's replay, and in the block nearest its bound |int8 - "
+        f"exact| {err:.6g} against {bound:.6g} (max|block| / 254 for each of its 4 quantizations, "
+        f"plus the adds' rounding)")
+
+
+def tl_report_single(one, cfg, ref, driver):
+    """Checks and logs of train-lib and its resume; returns the workers'
+    launches summed over both fits."""
+    first, again = one["first"], one["again"]
+    steps = tl_steps(first.metrics_history)
+    losses = [m["loss"] for m in steps]
+    check([m["step"] for m in steps] == list(range(1, TL_STEPS + 1)),
+          f"[train-lib] steps reported {[m['step'] for m in steps]}")
+    rel1 = abs(losses[0] - ref["train_data_loss"]) / abs(ref["train_data_loss"])
+    step_ms = float(np.median([m["step_ms"] for m in steps[1:]]))
+    saves = [m for m in first.metrics_history if "save_ms" in m]
+    copies = [m["report_ms"] for m in first.metrics_history if "report_ms" in m]
+    startup = steps[0]["t_start"] - one["first_t0"]
+    kept = sorted(int(c.load_pytree()["opt"]["count"]) for c, _ in first.best_checkpoints)
+    log(f"[train-lib] TorchTrainer, 1 GPU worker, the flagship from seed 0, cad.from_numpy(ids "
+        f"{TRAIN_B * (TRAIN_STEPS + 1)} x {TRAIN_T + 1}) through get_dataset_shard(...)."
+        f"iter_torch_batches(batch_size={TRAIN_B}): step {step_ms:.2f} ms (median of steps 2-"
+        f"{TL_STEPS}, worker's clock) against the train cell's {ref['train_ms']:.2f} and the "
+        f"train-data cell's {ref['train_data_ms']:.2f} in this call; fit {one['first_s']:.2f} s, "
+        f"the worker's loop started {startup:.2f} s after fit() began and built the model in "
+        f"{steps[0]['build_s']:.2f} s; save_pytree of params and AdamW state "
+        + ", ".join(f"{m['save_ms']:.0f} ms for {m['save_bytes'] / 1e9:.3f} GB" for m in saves)
+        + f", report's copy into the trial dir {', '.join(f'{x:.0f}' for x in copies)} ms; "
+        f"kept checkpoints (num_to_keep=2) of steps {kept}")
+    log(f"[train-lib] step 1's loss {losses[0]:.6f} vs the train-data cell's {ref['train_data_loss']:.6f} "
+        f"(relative {rel1:.3g}, limit {TL_TOL['step1_rel']:g}); loss over {TL_STEPS} steps "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; launches a step in the worker "
+        f"{sorted({tuple(m['launches']) for m in steps})}, in the driver {driver}")
+    check(rel1 <= TL_TOL["step1_rel"], "[train-lib] step 1's loss is off the train-data cell's")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"[train-lib] loss did not fall: {losses}")
+    check(all(tuple(m["launches"]) == (cfg.n_layers,) * 3 for m in steps),
+          f"[train-lib] a step did not launch each kernel {cfg.n_layers} times in the worker")
+    check(kept == [TL_CKPT_EVERY, TL_STEPS], f"[train-lib] kept checkpoints of steps {kept}")
+    # the resume
+    a0, a1 = tl_steps(again.metrics_history, 0), tl_steps(again.metrics_history, 1)
+    check([m["step"] for m in a0] == list(range(1, TL_FAIL_AFTER + 1))
+          and [m["step"] for m in a1] == list(range(TL_CKPT_EVERY + 1, TL_STEPS + 1)),
+          f"[train-lib] the failing fit reported steps {[m['step'] for m in a0]} then "
+          f"{[m['step'] for m in a1]}")
+    rel = [abs(m["loss"] - losses[m["step"] - 1]) / abs(losses[m["step"] - 1]) for m in a1]
+    rel0 = [abs(m["loss"] - losses[m["step"] - 1]) / abs(losses[m["step"] - 1]) for m in a0]
+    restart = a1[0]["t_start"] - one["t_fail"]
+    done = [m for m in again.metrics_history if m.get("done")]
+    tree = again.checkpoint.load_pytree()
+    from cluster_anywhere_tpu_torch.train.checkpoint import tree_flatten
+    import hashlib
+
+    h = hashlib.sha256()
+    for leaf in tree_flatten(tree["params"])[0]:
+        h.update(leaf.tobytes())
+    log(f"[train-lib] failure and resume: the loop raised after step {TL_FAIL_AFTER}, the "
+        f"controller restarted it from step {TL_CKPT_EVERY}'s checkpoint: worker restart "
+        f"{restart:.2f} s (failure to the new loop's start) + checkpoint load "
+        f"{a1[0]['load_s']:.2f} s; fit {one['again_s']:.2f} s; steps {TL_CKPT_EVERY + 1}-{TL_STEPS} "
+        f"against the first fit's: largest relative difference {max(rel):.3g} (limit "
+        f"{TL_TOL['resume_rel']:g}), steps 1-{TL_FAIL_AFTER} before the failure {max(rel0):.3g}; "
+        f"Result.checkpoint (step {int(tree['opt']['count'])}) params sha256 {h.hexdigest()[:16]} "
+        f"vs the worker's {done[-1]['params_sha256'][:16] if done else None}")
+    check(again.error is None and max(rel) <= TL_TOL["resume_rel"],
+          "[train-lib] the resumed steps are off the first fit's")
+    check(bool(done) and h.hexdigest() == done[-1]["params_sha256"],
+          "[train-lib] Result.checkpoint's params are not the worker's final params")
+    return tuple(map(sum, zip(*(m["launches"] for m in steps + a0 + a1))))
+
+
+def tl_report_fsdp(fsdp):
+    """Checks and logs of train-lib-fsdp; returns the workers' launches."""
+    four, two = tl_steps(fsdp["four"].metrics_history), tl_steps(fsdp["two"].metrics_history)
+    check([m["step"] for m in four] == list(range(1, TL_FSDP_STEPS + 1))
+          and [m["step"] for m in two] == [TL_FSDP_CKPT + 1],
+          f"[train-lib-fsdp] steps {[m['step'] for m in four]}, resumed {[m['step'] for m in two]}")
+    losses = [m["loss"] for m in four]
+    want, got = four[TL_FSDP_CKPT]["loss"], two[0]["loss"]
+    rel = abs(got - want) / abs(want)
+    launches = tuple(map(sum, zip(*(m["launches"] for m in four + two))))
+    save = [m["save_ms"] for m in four if "save_ms" in m]
+    log(f"[train-lib-fsdp] TorchTrainer, 4 workers at 0.25 GPU sharing the card, "
+        f"TorchConfig(backend='gloo'), fsdp2 x tp2 at flagship width: step "
+        f"{float(np.median([m['step_ms'] for m in four[1:]])):.1f} ms (median of steps 2-"
+        f"{TL_FSDP_STEPS}, rank 0's clock; 4 ranks on one card: not a scaling number); "
+        f"save_pytree_sharded after step {TL_FSDP_CKPT} {save[0]:.0f} ms; fit "
+        f"{fsdp['four_s']:.2f} s; loss {' '.join(f'{x:.4f}' for x in losses)}; then 2 workers at 0.5 "
+        f"GPU on fsdp2 resumed through load_pytree_sharded (fit {fsdp['two_s']:.2f} s): step "
+        f"{TL_FSDP_CKPT + 1}'s loss {got:.6f} vs {want:.6f} (relative {rel:.3g}, limit "
+        f"{TL_TOL['reshard_rel']:g}), step {two[0]['step_ms']:.1f} ms; launches in the workers, all "
+        f"ranks (fwd, dQ, dK/dV) {launches}")
+    check(rel <= TL_TOL["reshard_rel"], "[train-lib-fsdp] the resharded step is off the 4-worker run's")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"[train-lib-fsdp] loss did not fall: {losses}")
+    check(all(x > 0 for x in launches), f"[train-lib-fsdp] a kernel did not launch in the workers: {launches}")
+    return launches
+
+
 def module_origin(name):
     """Whether a module imports here, its version and where from."""
     import importlib
@@ -1988,7 +2533,7 @@ def main() -> int:
     launches = (launches[0] + replica_fwd,) + launches[1:]
     # the processor and train-data cells: the actor's launches read inside
     # it, the train-data launches between zeroed counts
-    data = phase_data(torch, attn, cfg, train_ms)
+    data, train_data_loss, train_data_ms = phase_data(torch, attn, cfg, train_ms)
     log(f"[data paths] launches (fwd, dQ, dK/dV), the processor actor's included: {data}")
     launches = tuple(map(sum, zip(launches, data)))
 
@@ -2025,6 +2570,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     par = phase_parallel(torch, attn)
     launches = tuple(map(sum, zip(launches, par)))
+    # the Train library, on a session of its own: its workers' launches
+    tl = phase_train_lib(torch, attn, {"train_ms": train_ms, "train_data_ms": train_data_ms,
+                                       "train_data_loss": train_data_loss})
+    launches = tuple(map(sum, zip(launches, tl)))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

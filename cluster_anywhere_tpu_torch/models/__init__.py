@@ -2,7 +2,13 @@
 the JAX package's params, the training step, and its sharding on a mesh.  Prefill, decode and
 generation live in models.generate."""
 
-from .convert import from_jax_params, to_jax_params
+from .convert import (
+    from_jax_params,
+    load_train_state,
+    to_jax_params,
+    train_state,
+    train_state_specs,
+)
 from .transformer import (
     TransformerConfig,
     TransformerLM,
@@ -29,4 +35,7 @@ __all__ = [
     "shard_params",
     "from_jax_params",
     "to_jax_params",
+    "train_state",
+    "train_state_specs",
+    "load_train_state",
 ]
