@@ -33,8 +33,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      build_continuous_llm_deployment with one GPU replica in a process of
      its own; 8 concurrent SSE streams, then 8 JSON POSTs, then the SSE
      streams again on the warm replica, each answer equal
-     to the in-process server's or differing only on a near-tie, the
-     forward's launches read inside the replica, and no process of the
+     to the in-process server's or differing only on a near-tie, every
+     SSE stream on the compiled shm stream (dag_stream handshakes counted
+     in the replica, none of the proxy's streams on RPC or fallen back),
+     the forward's launches read inside the replica, and no process of the
      session left after shutdown;
   4c. (after 4b, on a session of its own) the Data library: the processor
      cell, build_llm_processor over cad.from_items of 60 prompts with the
@@ -93,14 +95,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      to 1e-3 of the 4-worker run's); and the host collective groups' probe
      (4 actors, every op on a CUDA tensor of 1024 x 1024, f32 equal to the
      driver's to the bit, int8 within its bound).  Under one watchdog.
+  9. the device plane: entry.dryrun_device_plane() (a DTensor and a bf16
+     tensor between two GPU actors over a compiled DAG, strict), then on a
+     session of the port's runtime of its own, two actors at 0.5 GPU with
+     the flagship from seed 0: device-ref, the Prefiller's prefill of the
+     generate cell's prompts returned as CUDA tensors (the cache 8 layers
+     x [8, 544, 4, 128] bf16 for k and v), the ref passed back to it
+     resolving to the stored object (same data_ptr), passed to the Decoder,
+     whose 32 greedy tokens a row equal the generate cell's (or differ on
+     a near-tie), and got by the driver with the actor's bytes (sha256);
+     the hop's ms and GB/s (the Decoder's call, the driver's get, median
+     of 5 fresh refs) and the Prefiller's memory_allocated before the hop
+     and after the driver dropped every ref; dag-transport,
+     decode.bind(prefill.bind(inp).with_tensor_transport()) compiled and
+     run on 3 prompt sets under CA_DEVICE_TRANSPORT_STRICT (every leaf
+     landed on cuda, none on the CPU; tokens held to generate's), the
+     execute's ms (median of 5 after a warm-up); then one SSE wave of the
+     serve-http cell with serve_compiled_dag=False (the streaming-RPC
+     transport), its TTFT and token inter-arrival printed beside phase
+     4b's on the compiled stream.  Under one watchdog.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
 kernel; the HTTP and processor cells launch nothing in the driver.
 Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
-replica's, the processor actor's, the parallel ranks' and the Train
-workers' included), the
+replica's, the processor actor's, the parallel ranks', the Train
+workers', the Prefiller's and the RPC wave replica's included), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -655,12 +676,7 @@ def phase_generate(torch, cfg):
     from cluster_anywhere_tpu_torch.models.transformer import init_params
 
     model = init_params(cfg, 0, device="cuda")
-    lens = prompt_lens()
-    rng = np.random.default_rng(0)
-    ids = rng.integers(3, cfg.vocab_size, (B, T))
-    for i, n in enumerate(lens):
-        ids[i, : T - n] = 0
-    ids_t, lens_t = torch.from_numpy(ids).cuda(), torch.from_numpy(lens).cuda()
+    ids_t, lens_t = generate_prompts(torch, cfg, 0, "cuda")
     generate(model, ids_t, cfg=cfg, max_new_tokens=2, prompt_lens=lens_t)  # warm-up
     pad = T - lens_t
     with torch.no_grad():
@@ -835,12 +851,18 @@ def in_threads(fn, n):
     return out, time.perf_counter() - t0
 
 
-def token_stream(items):
+def token_stream(items, gaps=None):
     """(seconds to the first item, the token ids) of a stream of
-    {"token_id", "text"} items."""
+    {"token_id", "text"} items; the seconds between consecutive items are
+    appended to `gaps` when it is given."""
     t0, first, toks = time.perf_counter(), None, []
+    last = t0
     for item in items:
-        first = time.perf_counter() - t0 if first is None else first
+        now = time.perf_counter()
+        first = now - t0 if first is None else first
+        if gaps is not None and toks:
+            gaps.append(now - last)
+        last = now
         toks.append(item["token_id"])
     return first, toks
 
@@ -881,14 +903,21 @@ NEAR_TIE_GAP = 0.125  # twice 0.066, the largest bf16 logit gap between two runs
 
 
 def counting_ingress():
-    """The SSE ingress that build_continuous_llm_deployment deploys, plus
-    one method that reads the replica's own process: its pid, the GPU it
-    holds, the forward kernel's launch count (reset on request) and the
-    library it loaded.  Defined in a function, so it travels by value to
-    the replica's worker."""
+    """The SSE ingress that build_continuous_llm_deployment deploys, its
+    dag_stream handshakes counted, plus one method that reads the
+    replica's own process: its pid, the GPU it holds, the forward kernel's
+    launch count (reset on request), the library it loaded and the
+    handshakes.  Defined in a function, so it travels by value to the
+    replica's worker."""
     from cluster_anywhere_tpu_torch.llm.serve_llm import StreamingLLMIngress
 
     class CountingIngress(StreamingLLMIngress):
+        handshakes = 0  # dag_stream calls: SSE requests on the compiled stream
+
+        def dag_stream(self, request):
+            self.handshakes += 1
+            return super().dag_stream(request)
+
         def probe(self, reset=False):
             import os
 
@@ -902,7 +931,7 @@ def counting_ingress():
                    "params": str(self.cb.params.device),
                    "gpu": torch.cuda.get_device_name(self.cb.params.device),
                    "allocated_gb": torch.cuda.memory_allocated(self.cb.params.device) / 1e9,
-                   "lib": str(_build.build("flash_fwd"))}
+                   "lib": str(_build.build("flash_fwd")), "handshakes": self.handshakes}
             if reset:
                 flash_attention.launches = 0
             return out
@@ -985,11 +1014,15 @@ def compare_rows(torch, pcfg, prompts, want, got, what, model_box, tag="serve-ht
 def phase_serve_http(torch, attn, cfg, server):
     """The server cell's requests over HTTP: the port's runtime and Serve,
     build_continuous_llm_deployment with one GPU replica in its own
-    process, the proxy on a port the OS picks.  Returns the replica's
-    forward launches, read inside the replica."""
+    process, the proxy on a port the OS picks, SSE on the compiled shm
+    stream (serve_compiled_dag, the default: the handshakes counted in the
+    replica, no fallback to streaming RPC in the proxy).  Returns the
+    replica's forward launches, read inside the replica, and the first SSE
+    wave's TTFTs and token inter-arrival times (s)."""
     import cluster_anywhere_tpu_torch as ca
     from cluster_anywhere_tpu_torch import serve
     from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.core.config import get_config
     from cluster_anywhere_tpu_torch.llm import build_continuous_llm_deployment
     from cluster_anywhere_tpu_torch.ops import _build
     from cluster_anywhere_tpu_torch.util import state
@@ -1023,18 +1056,24 @@ def phase_serve_http(torch, attn, cfg, server):
               f"the replica did not load the driver's build of flash_fwd: {probe['lib']}")
 
         prompts, want = server_prompts(), server["tokens"]
+        proxy = ca.get_actor(serve.PROXY_NAME)
+        streams_before = ca.get(proxy.stream_stats.remote(), timeout=60)
         zero_launch_counts(attn)
+        gaps = []
+
         # SSE first: a fresh replica's first wave, as the in-process cell's
         # fresh server (one prefix miss, seven hits), so their TTFTs compare
-        def sse(i):
-            return token_stream(sse_events(url, {"prompt": prompts[i]}))
+        def sse(i, gaps=None):
+            return token_stream(sse_events(url, {"prompt": prompts[i]}), gaps)
 
-        streams, sse_wall = in_threads(sse, B)
+        streams, sse_wall = in_threads(lambda i: sse(i, gaps), B)
         answers, wall = in_threads(lambda i: http_post(url, {"prompt": prompts[i]}), B)
         # and SSE again on the warm replica: what the first wave's start costs
         warm, warm_wall = in_threads(sse, B)
         after = handle.options(method_name="probe").remote().result(timeout_s=60)
         driver_launches = launch_counts(attn)
+        streams_after = ca.get(proxy.stream_stats.remote(), timeout=60)
+        opened = {k: streams_after[k] - streams_before[k] for k in ("dag", "rpc", "fallbacks")}
         check(all(a["num_generated_tokens"] == N_NEW for a in answers),
               f"HTTP answers have {[a['num_generated_tokens'] for a in answers]} tokens")
         check(all(len(toks) == N_NEW for _, toks in streams + warm),
@@ -1053,6 +1092,11 @@ def phase_serve_http(torch, attn, cfg, server):
               f"the driver launched kernels during the HTTP cell: {driver_launches}")
         check(after["launches"] >= cfg.n_layers,
               f"the replica launched flash_fwd {after['launches']} times, want >= {cfg.n_layers}")
+        check(after["handshakes"] >= 2 * B and opened == {"dag": 2 * B, "rpc": 0, "fallbacks": 0}
+              and not streams_after["failed_deployments"],
+              f"the SSE streams did not all take the compiled shm stream: {after['handshakes']} "
+              f"dag_stream handshakes in the replica, the proxy's streams {opened}, "
+              f"{streams_after}")
         ttft = [first for first, _ in streams]
         warm_ttft = [first for first, _ in warm]
         log(f"[serve-http] 8 concurrent SSE streams (the replica's first wave), {N_NEW} tokens "
@@ -1066,6 +1110,10 @@ def phase_serve_http(torch, attn, cfg, server):
             f"{np.median(server['ttft']) * 1e3:.1f} ms, max {max(server['ttft']) * 1e3:.1f} ms, "
             f"{server['tok_s']:.1f} tok/s; replica start-up {startup:.2f} s; replica flash_fwd "
             f"launches {after['launches']}")
+        log(f"[serve-http] SSE transport: the compiled shm stream (serve_compiled_dag="
+            f"{get_config().serve_compiled_dag}): {after['handshakes']} dag_stream handshakes in "
+            f"the replica, the proxy opened {opened}; the first wave's token inter-arrival p50 "
+            f"{np.median(gaps) * 1e3:.2f} ms, max {max(gaps) * 1e3:.2f} ms over {len(gaps)} gaps")
         pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
     finally:
         serve.shutdown()
@@ -1078,7 +1126,7 @@ def phase_serve_http(torch, attn, cfg, server):
     check(not alive, f"processes of the port's session still alive after shutdown: {alive}")
     log(f"[serve-http] serve.shutdown() and ca.shutdown(): none of {len(pids)} processes "
         f"(head and workers) left")
-    return after["launches"]
+    return after["launches"], {"ttft": ttft, "gaps": gaps}
 
 
 def _pid_alive(pid):
@@ -2471,6 +2519,416 @@ def tl_report_fsdp(fsdp):
     return launches
 
 
+# ----------------------------------------------------------------- phase 9
+# The device plane, on a session of the port's runtime of its own: the
+# generate cell's prompts prefilled in one GPU actor, whose KV cache a
+# second GPU actor decodes from, handed over as a DeviceRef (device-ref)
+# and over a compiled DAG's tensor-transport edge (dag-transport); then one
+# SSE wave of the serve-http cell on the streaming-RPC transport
+# (serve_compiled_dag=False) beside phase 4b's compiled stream.
+
+DP_DEADLINE_S = 600  # the whole phase, under one watchdog
+DP_REPS = 5  # timed hops and executes, each a median over these
+DP_SEEDS = (0, 1, 2)  # the prompt sets of dag-transport; seed 0 is the generate cell's
+STRICT = "CA_DEVICE_TRANSPORT_STRICT"
+
+
+def generate_prompts(torch, cfg, seed, device):
+    """The generate cell's prompts (seed 0), or another set of the same
+    lengths: [B, T] ids left-padded to T, and the real lengths."""
+    lens = prompt_lens()
+    ids = np.random.default_rng(seed).integers(3, cfg.vocab_size, (B, T))
+    for i, n in enumerate(lens):
+        ids[i, : T - n] = 0
+    return torch.from_numpy(ids).to(device), torch.from_numpy(lens).to(device)
+
+
+def device_plane_actors():
+    """Prefiller and Decoder: actors at half of the card, each holding the
+    model from init_params(cfg, 0), with the transport in strict mode
+    (defined in a function: they travel to the workers by value)."""
+    import cluster_anywhere_tpu_torch as ca
+
+    class Half:
+        def __init__(self, cfg, device):
+            import os
+
+            import torch
+
+            from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+            os.environ[STRICT] = "1"
+            self.cfg, self.device = cfg, torch.device(device)
+            self.model = init_params(cfg, 0, device=self.device)
+
+        def probe(self, reset=False):
+            """This process: pid, the forward's launches, the card's
+            allocated bytes, the device objects it holds, the transport's
+            and the channels' counters."""
+            import os
+
+            import torch
+
+            from cluster_anywhere_tpu_torch.channel import device_transport
+            from cluster_anywhere_tpu_torch.channel.shm_channel import CHANNEL_STATS
+            from cluster_anywhere_tpu_torch.core.worker import global_worker
+            from cluster_anywhere_tpu_torch.ops.attention import flash_attention
+
+            cuda = self.device.type == "cuda"
+            out = {"pid": os.getpid(), "launches": flash_attention.launches,
+                   "allocated": torch.cuda.memory_allocated(self.device) if cuda else 0,
+                   "gpu": torch.cuda.get_device_name(self.device) if cuda else "cpu",
+                   "device_objects": len(global_worker().device_objects),
+                   "transport": device_transport.stats(), "channel": dict(CHANNEL_STATS),
+                   "strict": os.environ.get(STRICT)}
+            if reset:
+                flash_attention.launches = 0
+                device_transport.reset_stats()
+            return out
+
+    @ca.remote
+    class Prefiller(Half):
+        def prefill(self, inp):
+            """{"ids", "lens"} -> the prefill's last logits [B, V] fp32 and
+            its cache {"k","v"} [L, B, T + new, KV, D], on the card, with
+            the pad and the prompt length decode_one needs."""
+            import torch
+
+            from cluster_anywhere_tpu_torch.models.generate import prefill
+
+            ids = torch.as_tensor(inp["ids"], device=self.device).long()
+            pad = ids.shape[1] - torch.as_tensor(inp["lens"], device=self.device).long()
+            with torch.no_grad():
+                logits, cache = prefill(self.model, ids, self.cfg, ids.shape[1] + inp["new"],
+                                        pad=pad)
+            self.last = {"logits": logits, "cache": cache}
+            return {"logits": logits, "cache": cache, "pad": pad, "t_prompt": ids.shape[1]}
+
+        def held(self, out):
+            """Whether `out`, passed back in, is the stored value itself."""
+            return [out["cache"] is self.last["cache"],
+                    out["cache"]["k"].data_ptr() == self.last["cache"]["k"].data_ptr(),
+                    out["cache"]["k"].data_ptr()]
+
+        def digest(self, out):
+            import torch
+
+            return cache_digest(torch, out["cache"])
+
+    @ca.remote
+    class Decoder(Half):
+        def land(self, out):
+            """Where the argument landed, after its copies finished."""
+            import torch
+
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return [str(out["cache"]["k"].device), str(out["logits"].device),
+                    type(out["cache"]["k"]).__name__]
+
+        def decode(self, out):
+            """generate's decode loop on the landed prefill: greedy tokens
+            [B, 1 + T_max - 1 - t_prompt] (numpy) and where the cache landed."""
+            import torch
+
+            from cluster_anywhere_tpu_torch.models.generate import decode_one
+
+            cache, pad = out["cache"], out["pad"]
+            token = out["logits"].argmax(dim=-1).to(torch.int32)
+            toks = [token]
+            with torch.no_grad():
+                for pos in range(out["t_prompt"], cache["k"].shape[2] - 1):
+                    logits, cache = decode_one(self.model, cache, token, pos, self.cfg, pad)
+                    token = logits.argmax(dim=-1).to(torch.int32)
+                    toks.append(token)
+            return {"tokens": torch.stack(toks, dim=1).cpu().numpy(),
+                    "landed": [str(cache["k"].device), str(out["logits"].device)]}
+
+    return Prefiller, Decoder
+
+
+def near_tie_rows(torch, model, cfg, ids, lens, want, got, what, tag="dag-transport"):
+    """Rows of got against want (token ids [B, N]): a differing row must
+    be a near-tie where it first differs (both tokens the top two of the
+    row's logits there, at most NEAR_TIE_GAP apart; one plain prefill of
+    the row's real prompt and want's tokens before it).  Returns the count
+    of differing rows."""
+    from cluster_anywhere_tpu_torch.models.generate import prefill
+
+    differing = 0
+    for i in range(len(want)):
+        w, g = [int(x) for x in want[i]], [int(x) for x in got[i]]
+        if w == g:
+            continue
+        differing += 1
+        k = next(j for j in range(len(w)) if w[j] != g[j])
+        row = torch.cat([ids[i, T - int(lens[i]):], torch.tensor(w[:k], device=ids.device)])[None]
+        with torch.no_grad():
+            logits, _ = prefill(model, row.long(), cfg, row.shape[1] + 1)
+        top = logits[0].float().topk(2)
+        pair, gap = top.indices.tolist(), (top.values[0] - top.values[1]).item()
+        tie = w[k] in pair and g[k] in pair and gap <= NEAR_TIE_GAP
+        log(f"[{tag}] {what} row {i} differs at token {k} ({w[k]} vs {g[k]}): top two {pair}, "
+            f"logit gap {gap:.4f}, near-tie {tie}")
+        check(tie, f"[{tag}] {what} row {i} differs, and not on a near-tie")
+    return differing
+
+
+def cache_digest(torch, cache):
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("k", "v"):
+        h.update(cache[name].cpu().view(torch.int16).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_device_ref(torch, ca, prefiller, decoder, inp, want, nbytes):
+    """The device-ref cell: returns its numbers."""
+    t0 = time.perf_counter()
+    ref = prefiller.prefill.remote(inp)
+    check(ca.wait([ref], timeout=300)[0] == [ref], "[device-ref] the prefill did not finish")
+    prefill_s = time.perf_counter() - t0
+    before_hop = ca.get(prefiller.probe.remote(), timeout=60)
+    held = ca.get(prefiller.held.remote(ref), timeout=120)
+    check(held[:2] == [True, True], f"[device-ref] the ref passed back to its owner is not the "
+          f"stored value itself: {held}")
+    out = ca.get(decoder.decode.remote(ref), timeout=300)
+    check(out["landed"][0].startswith(str(decoder_device(torch))),
+          f"[device-ref] the cache landed in the Decoder on {out['landed']}")
+    check(out["tokens"].shape == (B, N_NEW), f"[device-ref] decoded {out['tokens'].shape}")
+    got = ca.get(ref, timeout=300)
+    digest = ca.get(prefiller.digest.remote(ref), timeout=120)
+    check(cache_digest(torch, got["cache"]) == digest,
+          "[device-ref] the driver's landed cache is not the actor's bytes")
+    check(got["cache"]["k"].device.type == decoder_device(torch).type,
+          f"[device-ref] the driver's get landed on {got['cache']['k'].device}")
+    del got
+    hop, get = [], []
+    for _ in range(DP_REPS):  # a fresh ref each time: a fetched value is cached by its getter
+        ref = prefiller.prefill.remote(inp)
+        ca.wait([ref], timeout=300)
+        t0 = time.perf_counter()
+        landed = ca.get(decoder.land.remote(ref), timeout=300)
+        hop.append(time.perf_counter() - t0)
+        ref = prefiller.prefill.remote(inp)
+        ca.wait([ref], timeout=300)
+        t0 = time.perf_counter()
+        v = ca.get(ref, timeout=300)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        get.append(time.perf_counter() - t0)
+        del v, ref
+    return {"tokens": out["tokens"], "held": held, "prefill_s": prefill_s, "landed": landed,
+            "before_hop": before_hop,
+            "hop_ms": float(np.median(hop)) * 1e3, "get_ms": float(np.median(get)) * 1e3,
+            "hop_gbs": nbytes / float(np.median(hop)) / 1e9,
+            "get_gbs": nbytes / float(np.median(get)) / 1e9, "digest": digest[:16]}
+
+
+def decoder_device(torch):
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def dp_dag_transport(ca, prefiller, decoder, inputs):
+    """The dag-transport cell: decode(prefill(inp)) compiled with a
+    tensor-transport edge, one execute per prompt set, then DP_REPS timed
+    after a warm-up.  Returns each set's tokens and the executes' ms."""
+    from cluster_anywhere_tpu_torch.dag import InputNode
+
+    with InputNode() as inp:
+        node = decoder.decode.bind(prefiller.prefill.bind(inp).with_tensor_transport())
+    dag = node.experimental_compile()
+    try:
+        outs = [dag.execute(x).get(timeout=300) for x in inputs]
+        dag.execute(inputs[0]).get(timeout=300)
+        ms = []
+        for _ in range(DP_REPS):
+            t0 = time.perf_counter()
+            dag.execute(inputs[0]).get(timeout=300)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dag.teardown()
+    return outs, ms
+
+
+def dp_rpc_wave(torch, ca, cfg, server_tokens, device):
+    """One SSE wave of the serve-http cell on this session's streaming-RPC
+    transport: returns the replica's forward launches and the wave's
+    TTFTs and inter-arrival times (s)."""
+    from cluster_anywhere_tpu_torch import serve
+    from cluster_anywhere_tpu_torch.llm import build_continuous_llm_deployment
+
+    serve.start(port=0)
+    url = ca.get(ca.get_actor(serve.PROXY_NAME).ready.remote(), timeout=60) + "/llm"
+    app = build_continuous_llm_deployment(server_config(cfg), num_gpus=1, slots=8,
+                                          sse_ingress=True,
+                                          device=None if device == "cuda" else device)
+    app.deployment.func_or_class = counting_ingress()
+    handle = serve.run(app, name="llm", route_prefix="/llm", wait_timeout_s=240)
+    handle.options(method_name="probe").remote(reset=True).result(timeout_s=60)
+    proxy = ca.get_actor(serve.PROXY_NAME)
+    before = ca.get(proxy.stream_stats.remote(), timeout=60)
+    prompts, gaps = server_prompts(), []
+    streams, wall = in_threads(
+        lambda i: token_stream(sse_events(url, {"prompt": prompts[i]}), gaps), B)
+    after = handle.options(method_name="probe").remote().result(timeout_s=60)
+    opened = {k: ca.get(proxy.stream_stats.remote(), timeout=60)[k] - before[k]
+              for k in ("dag", "rpc", "fallbacks")}
+    check(opened == {"dag": 0, "rpc": B, "fallbacks": 0} and after["handshakes"] == 0,
+          f"[serve-rpc] with serve_compiled_dag=False the proxy opened {opened}, the replica "
+          f"had {after['handshakes']} handshakes")
+    check(all(len(t) == N_NEW for _, t in streams), "[serve-rpc] a stream is short")
+    differing = compare_rows(torch, server_config(cfg), prompts, server_tokens,
+                             [t for _, t in streams], "SSE (RPC)", [], tag="serve-rpc")
+    ttft = [first for first, _ in streams]
+    serve.shutdown()
+    return after["launches"], {"ttft": ttft, "gaps": gaps, "wall": wall,
+                               "equal": B - differing, "opened": opened}
+
+
+def phase_device_plane(torch, attn, cfg, gen_tokens, server_tokens, compiled_sse,
+                       device="cuda"):
+    """The device-plane cells on a session of the port's runtime of its own
+    (device-ref, dag-transport, the RPC SSE wave), after the device-plane
+    dry run on its own session, each checked and logged as it ends.
+    gen_tokens: the generate cell's tokens [B, N_NEW]; server_tokens: the
+    server cell's; compiled_sse: phase 4b's first SSE wave.  Returns the
+    forward's launches in the Prefiller and the RPC wave's replica."""
+    import gc
+
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.entry import dryrun_device_plane
+    from cluster_anywhere_tpu_torch.models.generate import generate
+    from cluster_anywhere_tpu_torch.models.transformer import init_params
+    from cluster_anywhere_tpu_torch.util import state
+
+    t_phase = time.perf_counter()
+    card = gpu_clocks("name,power.limit") if device == "cuda" else "cpu"
+    df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True, text=True, timeout=60)
+    log(f"[device-plane] df -h /dev/shm: {' | '.join(df.stdout.strip().splitlines())}")
+    dryrun_device_plane(device)
+    os.environ[STRICT] = "1"
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    info = ca.init(num_cpus=4, serve_compiled_dag=False,
+                   **({} if device == "cuda" else {"num_gpus": 1}))
+    try:
+        check(info["resources"].get("GPU") == 1.0,
+              f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
+        with watchdog(DP_DEADLINE_S, "the device-plane phase"):
+            Prefiller, Decoder = device_plane_actors()
+            gpu = 0.5 if device == "cuda" else 0
+            prefiller = Prefiller.options(num_gpus=gpu).remote(cfg, device)
+            decoder = Decoder.options(num_gpus=gpu).remote(cfg, device)
+            probes = ca.get([prefiller.probe.remote(True), decoder.probe.remote(True)],
+                            timeout=300)
+            check(probes[0]["pid"] != probes[1]["pid"] != os.getpid()
+                  and all(p["strict"] == "1" for p in probes),
+                  f"the actors are not two processes of their own in strict mode: {probes}")
+            inputs = []
+            for seed in DP_SEEDS:
+                ids, lens = generate_prompts(torch, cfg, seed, "cpu")
+                inputs.append({"ids": ids.numpy(), "lens": lens.numpy(), "new": N_NEW})
+            kv = 2 * cfg.n_layers * B * (T + N_NEW) * cfg.n_kv_heads * cfg.d_head * 2
+            nbytes = kv + B * cfg.vocab_size * 4 + B * 8
+
+            # device-ref
+            one = dp_device_ref(torch, ca, prefiller, decoder, inputs[0], gen_tokens, nbytes)
+            model = init_params(cfg, 0, device=device)
+            ids0, lens0 = generate_prompts(torch, cfg, 0, device)
+            differing = near_tie_rows(torch, model, cfg, ids0, lens0, gen_tokens, one["tokens"],
+                                      "device-ref vs generate", "device-ref")
+            log(f"[device-ref] the generate cell's prompts prefilled in the Prefiller "
+                f"({probes[0]['gpu']}, pid {probes[0]['pid']}), decoded by the Decoder (pid "
+                f"{probes[1]['pid']}): {B - differing} of {B} rows equal to the generate cell's; "
+                f"the ref passed back to its owner resolves to the stored object (data_ptr "
+                f"{one['held'][2]:#x}); the driver's ca.get lands the cache on "
+                f"{decoder_device(torch)} with the actor's bytes (sha256 {one['digest']}...); "
+                f"a hop of {nbytes} B (cache {kv}, logits, pad), median of {DP_REPS} fresh refs: "
+                f"the Decoder's call taking the ref {one['hop_ms']:.2f} ms "
+                f"({one['hop_gbs']:.2f} GB/s, landed on {one['landed'][0]}), the driver's get "
+                f"{one['get_ms']:.2f} ms ({one['get_gbs']:.2f} GB/s); on {card}")
+
+            # dag-transport
+            ca.get(decoder.probe.remote(True), timeout=60)
+            outs, exec_ms = dp_dag_transport(ca, prefiller, decoder, inputs)
+            tr = ca.get(decoder.probe.remote(), timeout=60)["transport"]
+            pre = ca.get(prefiller.probe.remote(), timeout=60)
+            check(tr["leaves_landed"] > 0 and tr["cuda_landings" if device == "cuda"
+                                                    else "cpu_landings"] == tr["leaves_landed"]
+                  and (device != "cuda" or tr["cpu_landings"] == 0),
+                  f"[dag-transport] the Decoder's landings {tr}")
+            check(all(o["landed"][0].startswith(device) for o in outs),
+                  f"[dag-transport] the cache landed on {[o['landed'] for o in outs]}")
+            equal = []
+            for seed, o in zip(DP_SEEDS, outs):
+                ids, lens = generate_prompts(torch, cfg, seed, device)
+                want = gen_tokens if seed == 0 else generate(
+                    model, ids, cfg=cfg, max_new_tokens=N_NEW, prompt_lens=lens).cpu().numpy()
+                equal.append(B - near_tie_rows(torch, model, cfg, ids, lens, want, o["tokens"],
+                                               f"prompt set {seed}"))
+            log(f"[dag-transport] decode.bind(prefill.bind(inp).with_tensor_transport()) "
+                f"compiled, strict: prompt sets {list(DP_SEEDS)} (seed 0 the generate cell's, the "
+                f"others against generate in the driver): {equal} of {B} rows equal; per-execute "
+                f"{np.median(exec_ms):.2f} ms (median of {DP_REPS} after a warm-up: "
+                f"{' '.join(f'{x:.1f}' for x in exec_ms)}) against device-ref's hop "
+                f"{one['hop_ms']:.2f} ms and its first (cold) prefill call "
+                f"{one['prefill_s'] * 1e3:.2f} ms; "
+                f"the Decoder's landings {tr}; the Prefiller's channel counters "
+                f"{pre['channel']}; on {card}")
+            del model
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+            # the producer after the driver dropped every ref
+            time.sleep(1.0)
+            held = ca.get(prefiller.probe.remote(), timeout=60)
+            launches = held["launches"]
+            log(f"[device-ref] the Prefiller's memory_allocated: {probes[0]['allocated']} B "
+                f"with the weights alone, {one['before_hop']['allocated']} B after the first "
+                f"prefill, before the hop ({one['before_hop']['device_objects']} device objects "
+                f"held), {held['allocated']} B with {held['device_objects']} device objects held "
+                f"after the driver dropped every ref (an actor's result is owned by its caller: "
+                f"the actor keeps what it returned, as the JAX package's does); its flash_fwd "
+                f"launches {launches}")
+            check(launches > 0, f"the Prefiller never launched flash_fwd: {held}")
+            for a in (prefiller, decoder):
+                ca.kill(a)
+
+            # the RPC stream
+            rpc_launches, rpc = dp_rpc_wave(torch, ca, cfg, server_tokens, device)
+            log(f"[serve-rpc] one SSE wave of 8 on streaming RPC (serve_compiled_dag=False): "
+                f"TTFT p50 {np.median(rpc['ttft']) * 1e3:.1f} ms, max "
+                f"{max(rpc['ttft']) * 1e3:.1f} ms, token inter-arrival p50 "
+                f"{np.median(rpc['gaps']) * 1e3:.2f} ms; {rpc['equal']} of {B} streams equal to "
+                f"the in-process server's; the proxy opened {rpc['opened']}; the replica's "
+                f"flash_fwd launches {rpc_launches}; phase 4b's first wave on the compiled "
+                f"stream (same call): TTFT p50 {np.median(compiled_sse['ttft']) * 1e3:.1f} ms, "
+                f"max {max(compiled_sse['ttft']) * 1e3:.1f} ms, inter-arrival p50 "
+                f"{np.median(compiled_sse['gaps']) * 1e3:.2f} ms; on {card}")
+            check(rpc_launches >= cfg.n_layers,
+                  f"[serve-rpc] the replica launched flash_fwd {rpc_launches} times")
+        pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+    except BaseException:
+        print_session_errors(api._session_dir)
+        raise
+    finally:
+        os.environ.pop(STRICT, None)
+        ca.shutdown()
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.2)
+    check(not alive, f"processes of the device-plane session still alive after shutdown: {alive}")
+    log(f"[device-plane] phase 9 in {time.perf_counter() - t_phase:.1f} s; none of {len(pids)} "
+        f"processes of its session left")
+    return launches + rpc_launches
+
+
 def module_origin(name):
     """Whether a module imports here, its version and where from."""
     import importlib
@@ -2529,7 +2987,7 @@ def main() -> int:
 
     # the server cell over HTTP: zeroed and read in the driver and, for the
     # launches that count, inside the replica's process
-    replica_fwd = phase_serve_http(torch, attn, cfg, server)
+    replica_fwd, compiled_sse = phase_serve_http(torch, attn, cfg, server)
     launches = (launches[0] + replica_fwd,) + launches[1:]
     # the processor and train-data cells: the actor's launches read inside
     # it, the train-data launches between zeroed counts
@@ -2563,6 +3021,7 @@ def main() -> int:
     compare_train_with_plain_attention(torch, attn, moe, "train-moe")
 
     # the parallel stack, on ranks of their own: this process's models go first
+    gen_tokens, server_tokens = out.cpu().numpy(), server["tokens"]
     del server, out, mout
     import gc
 
@@ -2574,6 +3033,10 @@ def main() -> int:
     tl = phase_train_lib(torch, attn, {"train_ms": train_ms, "train_data_ms": train_data_ms,
                                        "train_data_loss": train_data_loss})
     launches = tuple(map(sum, zip(launches, tl)))
+    # the device plane, on a session of its own: the actors' and the RPC
+    # wave replica's forward launches
+    dp = phase_device_plane(torch, attn, flagship(), gen_tokens, server_tokens, compiled_sse)
+    launches = (launches[0] + dp,) + launches[1:]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

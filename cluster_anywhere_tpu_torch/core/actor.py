@@ -77,11 +77,11 @@ class ActorMethod:
         )
 
     def bind(self, *args, **kwargs):
-        """DAG nodes from actor methods (reference: dag/class_node.py;
-        compiled graphs) come with the port of dag/; until then this raises."""
-        from .errors import not_ported
+        """Create a DAG node from this actor method (reference:
+        dag/class_node.py; enables compiled graphs)."""
+        from ..dag.node import ClassMethodNode
 
-        raise not_ported("actor method .bind (DAG nodes)", "4")
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def options(self, num_returns: Optional[int] = None, **_ignored) -> "ActorMethod":
         n = self._num_returns if num_returns is None else num_returns

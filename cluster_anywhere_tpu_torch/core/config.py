@@ -174,6 +174,19 @@ class CAConfig:
     actor_restart_backoff_s: float = 0.2
     push_timeout_s: float = 60.0
 
+    # --- compiled DAG plane (dag/compiled.py; channel/shm_channel.py) ---
+    # per-execute result deadline: a tick that hasn't produced its outputs
+    # within this raises DagTimeoutError naming the stalled node (never a
+    # bare hang); also bounds the input-channel backpressure wait
+    dag_execute_timeout_s: float = 300.0
+    # serving plane: stream ContinuousLLMServer tokens to the proxy over a
+    # pre-opened shm channel (per-token cost = one channel write) instead of
+    # streaming-RPC frames.  Off = every token rides an RPC frame.
+    serve_compiled_dag: bool = True
+    # slots in the per-request token channel (tokens in flight before the
+    # replica-side writer blocks on the proxy reader)
+    serve_dag_stream_buffers: int = 8
+
     # --- misc ---
     session_dir_root: str = field(default_factory=_default_session_root)
     log_to_driver: bool = True

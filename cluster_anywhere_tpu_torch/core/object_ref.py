@@ -4,14 +4,18 @@ ObjectRef is the future-like handle returned by `put()` and `.remote()`.
 Mirrors the reference's ObjectRef (python/ray/includes/object_ref.pxi) incl.
 refcount notification on destruction so the owner can GC shared-memory data.
 
-DeviceRef, a handle to device values that stay in the owning process, is
-not ported yet: constructing one raises (ROADMAP Queue 1 item 4), and a CUDA
-tensor put or returned from a task is refused, never copied to the host.
+DeviceRef is the device extension: a handle to CUDA tensors (or a tree of
+them) that live on the card inside the owning process and are never copied
+to the host when passed back into that process's methods: the owner
+resolves it to the stored object itself.  Any other process that asks for
+the value gets it through channel/device_transport, landed on its own
+device.  A CUDA tensor put, passed as an argument or returned from a task
+is kept so (core/worker.py `device_objects`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 from .ids import ObjectID
 
@@ -85,10 +89,22 @@ class ObjectRef:
 
 
 class DeviceRef(ObjectRef):
-    def __new__(cls, *args, **kwargs):
-        from .errors import not_ported
+    __slots__ = ("spec",)
 
-        raise not_ported("DeviceRef (device objects)", "4")
+    def __init__(self, object_id, owner=None, worker=None, spec: Any = None):
+        super().__init__(object_id, owner, worker)
+        # spec: lightweight description (shapes/dtypes/devices) for display
+        # and for shape-checking without touching the device data.
+        self.spec = spec
+
+    def __repr__(self):
+        return f"DeviceRef({self.id.hex()}, owner={self.owner}, spec={self.spec})"
+
+    def __reduce__(self):
+        from .serialization import note_serialized_ref
+
+        note_serialized_ref(self.id.binary())
+        return (_rehydrate_device_ref, (self.id.binary(), self.owner, self.spec))
 
 
 def _rehydrate_ref(kind: str, id_bytes: bytes, owner):
@@ -96,3 +112,10 @@ def _rehydrate_ref(kind: str, id_bytes: bytes, owner):
 
     w = try_global_worker()
     return ObjectRef(ObjectID(id_bytes), owner, w)
+
+
+def _rehydrate_device_ref(id_bytes: bytes, owner, spec):
+    from .worker import try_global_worker
+
+    w = try_global_worker()
+    return DeviceRef(ObjectID(id_bytes), owner, w, spec)

@@ -99,11 +99,10 @@ class RemoteFunction:
         return refs[0] if opts.get("num_returns", 1) == 1 else refs
 
     def bind(self, *args, **kwargs):
-        """Task DAG nodes (reference: dag/function_node.py) come with the
-        port of dag/; until then this raises."""
-        from .errors import not_ported
+        """Create a task DAG node (reference: dag/function_node.py)."""
+        from ..dag.node import FunctionNode
 
-        raise not_ported("task .bind (DAG nodes)", "4")
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -4,10 +4,13 @@ Uses cloudpickle with pickle protocol 5 out-of-band buffers so that numpy
 arrays (and any buffer-exporting object) are serialized without copies: the
 pickle stream holds only metadata while raw buffers are collected separately
 and written directly into shared memory.  This mirrors the reference's
-zero-copy plasma reads (python/ray/_private/serialization.py) in spirit.  A
-CUDA tensor never goes through pickle: where torch is loaded, the picklers
-refuse it (device objects are ROADMAP Queue 1 item 4) instead of copying it
-to the host; CPU tensors pickle as usual.
+zero-copy plasma reads (python/ray/_private/serialization.py) in spirit.
+CUDA values at the top of a put, an argument or a result never reach pickle
+at all: they stay in the owning process (object_ref.DeviceRef).  A CUDA
+tensor nested deeper, inside some object, travels by its own reducer, as a
+jax.Array travels by its own: one copy to the host, its bytes out of band,
+landed on the receiver's device (channel/device_transport).  CPU tensors
+pickle as usual.
 
 Wire format of a serialized value (used both inline and in shm):
     meta: msgpack {pickle: bytes, buffer_lens: [int, ...]}
@@ -58,40 +61,41 @@ def note_serialized_ref(id_bytes: bytes) -> None:
         refs.append(id_bytes)
 
 
-def _refuse_cuda(tensor):
-    if tensor.is_cuda:
-        from .errors import not_ported
+def _reduce_cuda(tensor):
+    """A CUDA tensor as a transport leaf that lands on the receiver's
+    device; NotImplemented (pickle's own way) for any other tensor."""
+    if not tensor.is_cuda:
+        return NotImplemented
+    from ..channel.device_transport import land_leaf, pack_leaf
 
-        raise not_ported(
-            f"moving a CUDA tensor {tuple(tensor.shape)}:{tensor.dtype} through the "
-            "object store (device objects)", "4",
-        )
-    return tensor.__reduce_ex__(5)
-
-
-_guarded: Optional[tuple] = None  # (Pickler, CloudPickler) that refuse CUDA tensors
+    return (land_leaf, (pack_leaf(tensor),))
 
 
-def _guarded_picklers() -> Optional[tuple]:
-    """Pickler classes that refuse CUDA tensors; None while torch is not
-    loaded (then no value can hold one)."""
-    global _guarded
+_device_aware: Optional[tuple] = None  # (Pickler, CloudPickler) with the CUDA reducer
+
+
+def _device_picklers() -> Optional[tuple]:
+    """Pickler classes that send CUDA tensors as transport leaves; None
+    while torch is not loaded (then no value can hold one)."""
+    global _device_aware
     torch = sys.modules.get("torch")
-    if _guarded is None and torch is not None and hasattr(torch, "Tensor"):
+    if _device_aware is None and torch is not None and hasattr(torch, "Tensor"):
         tensor = torch.Tensor
 
         class _Pickler(pickle.Pickler):
             def reducer_override(self, obj):
-                return _refuse_cuda(obj) if isinstance(obj, tensor) else NotImplemented
+                return _reduce_cuda(obj) if isinstance(obj, tensor) else NotImplemented
 
         class _CloudPickler(cloudpickle.CloudPickler):
             def reducer_override(self, obj):
                 if isinstance(obj, tensor):
-                    return _refuse_cuda(obj)
+                    reduced = _reduce_cuda(obj)
+                    if reduced is not NotImplemented:
+                        return reduced
                 return super().reducer_override(obj)
 
-        _guarded = (_Pickler, _CloudPickler)
-    return _guarded
+        _device_aware = (_Pickler, _CloudPickler)
+    return _device_aware
 
 
 def _dumps(pickler_cls, value, buffer_callback) -> bytes:
@@ -107,12 +111,12 @@ def serialize(value: Any) -> Tuple[bytes, List[pickle.PickleBuffer]]:
     pickle can't handle (lambdas, local classes) — mirroring the reference's
     split between inline serialization and cloudpickled definitions."""
     buffers: List[pickle.PickleBuffer] = []
-    guarded = _guarded_picklers()
+    picklers = _device_picklers()
     try:
-        if guarded is None:
+        if picklers is None:
             data = pickle.dumps(value, protocol=5, buffer_callback=buffers.append)
         else:
-            data = _dumps(guarded[0], value, buffers.append)
+            data = _dumps(picklers[0], value, buffers.append)
         # plain pickle serializes __main__-defined classes/functions BY
         # REFERENCE, which a worker process (different __main__) cannot
         # resolve; cloudpickle serializes them by value.  The module name is
@@ -122,10 +126,10 @@ def serialize(value: Any) -> Tuple[bytes, List[pickle.PickleBuffer]]:
             raise pickle.PicklingError("references __main__")
     except (pickle.PicklingError, AttributeError, TypeError):
         buffers.clear()
-        if guarded is None:
+        if picklers is None:
             data = cloudpickle.dumps(value, protocol=5, buffer_callback=buffers.append)
         else:
-            data = _dumps(guarded[1], value, buffers.append)
+            data = _dumps(picklers[1], value, buffers.append)
     return data, buffers
 
 def deserialize(data: bytes, buffers: List[Any]) -> Any:

@@ -177,8 +177,9 @@ def set_global_worker(w: Optional["Worker"]):
 
 
 def _cuda_leaves(value: Any) -> list:
-    """CUDA tensors among the leaves of a dict/list/tuple tree.  Only
-    consulted once torch is loaded: no other process can hold one."""
+    """CUDA tensors among the leaves of a dict/list/tuple tree (the port's
+    counterpart of a tree holding a jax.Array).  Only consulted once torch
+    is loaded: no other process can hold one."""
     import sys
 
     torch = sys.modules.get("torch")
@@ -198,21 +199,15 @@ def _cuda_leaves(value: Any) -> list:
 
 
 def _is_device_value(value: Any) -> bool:
-    """True if the tree holds a CUDA tensor: device-resident values must not
-    transit pickle."""
+    """True if the tree holds a CUDA tensor: such a value stays in the
+    process that made it (device_objects) and other processes hold a
+    "device" entry naming its owner; CPU tensors and numpy arrays are host
+    values and take the object store's zero-copy shm path."""
     return bool(_cuda_leaves(value))
 
 
 def _device_spec(value: Any) -> str:
     return ", ".join(f"Tensor{tuple(t.shape)}:{t.dtype}@{t.device}" for t in _cuda_leaves(value))
-
-
-def refuse_device_value(value: Any, where: str):
-    """Device objects (DeviceRef) are not ported: a CUDA value is refused,
-    never copied to the host quietly."""
-    from .errors import not_ported
-
-    raise not_ported(f"{where} of a CUDA value [{_device_spec(value)}] (device objects)", "4")
 
 
 @dataclass
@@ -812,6 +807,8 @@ class Worker:
         self._lineage_order: deque = deque()
         self._recon_lock = threading.Lock()
         self._recon_events: Dict[bytes, threading.Event] = {}
+        # device object table: oid-bytes -> live device value (owner side)
+        self.device_objects: Dict[bytes, Any] = {}
         # --- p2p planes (ownership directory + direct collectives) --------
         # collective mailbox: (group, key, src_rank) -> (data, shape, dtype)
         # deliveries land on the IO loop (coll_push RPC); rank threads block
@@ -2544,7 +2541,14 @@ class Worker:
 
     def _put_value(self, oid: ObjectID, value: Any):
         if _is_device_value(value):
-            refuse_device_value(value, "put")
+            from ..channel.device_transport import settle
+
+            # the producer's kernels must be done before a fetch copies the
+            # value on another thread (fetch_object packs on an executor)
+            settle(value)
+            self.device_objects[oid.binary()] = value
+            self.memory_store.put_value(oid, value)
+            return
         with serialization.ref_capture() as nested:
             data, buffers = serialization.serialize(value)
         raws = [b.raw() for b in buffers]
@@ -2928,6 +2932,7 @@ class Worker:
         self.memory_store.delete(oid)
         if self.reference_counter.is_owned(oid):
             self.reference_counter.remove_owned(oid)
+            self.device_objects.pop(oid.binary(), None)
             # lineage is only useful while some ref could still ask for
             # reconstruction: when every return object of the producing task
             # has dropped to zero local refs, the task spec can go too
@@ -2999,7 +3004,26 @@ class Worker:
             return value
         if e.state == "shm":
             return self._read_shm_entry(ref, e)
+        if e.state == "device":
+            # device value owned by another process: explicit materialization
+            return self._fetch_remote(ref, e)
         raise ObjectLostError(f"object {ref.id} in unexpected state {e.state}")
+
+    def _fetch_remote(self, ref: ObjectRef, e: _Entry) -> Any:
+        """Fetch a device value from its owner: its tensors land on this
+        process's device (channel/device_transport), and the landed value
+        is cached here, so a second get returns the same object."""
+        owner_addr = e.shm_name  # device entries store owner addr here
+        reply = self.run_coro(self._fetch_remote_async(owner_addr, ref.id.binary()))
+        from ..channel.device_transport import maybe_unpack
+
+        value = maybe_unpack(serialization.unpack(reply["packed"]))
+        self.memory_store.put_value(ref.id, value)
+        return value
+
+    async def _fetch_remote_async(self, addr: str, oid: bytes):
+        conn = await self.conn_to(addr)
+        return await conn.call("fetch_object", oid=oid, timeout=self.config.push_timeout_s)
 
     def _on_io_thread(self) -> bool:
         try:
@@ -3839,15 +3863,51 @@ class Worker:
                 await asyncio.sleep(0.002)
             if e.state == "error":
                 raise e.error
+            if e.state == "device":
+                return {"dev": oid.binary(), "owner": e.shm_name, "spec": e.value}
             if e.shm_name and e.state in ("shm", "value"):
                 # keep shm provenance even after a local zero-copy read
                 return {"shm": e.shm_name, "size": e.size, "oid": oid.binary()}
+            if oid.binary() in self.device_objects:
+                if not self.serve_addr:
+                    # driver has no serving socket: ship inline, as a
+                    # transport envelope (raw host buffers out of band)
+                    from ..channel.device_transport import pack_device_value
+
+                    return {
+                        "v": serialization.pack(
+                            pack_device_value(self.device_objects[oid.binary()])
+                        )
+                    }
+                return {
+                    "dev": oid.binary(),
+                    "owner": self.serve_addr,
+                    "spec": _device_spec(self.device_objects[oid.binary()]),
+                }
             # small local value: inline (packed)
             if e.state == "packed":
                 return {"v": e.packed}
             return await self._pack_with_transit_async(e.value)
+        # plain value: device values stay on device when this process can
+        # serve them (workers/actors); the driver ships an envelope.
         if _is_device_value(value):
-            refuse_device_value(value, "a task argument")
+            from ..channel.device_transport import pack_device_value, settle
+
+            if not self.serve_addr:
+                return {"v": serialization.pack(pack_device_value(value))}
+            # kept under an id no local handle counts (a put's handle would
+            # be dropped, and the value evicted, before the callee fetched
+            # it): it stays until this process exits, as a device result
+            # this process returned does
+            settle(value)
+            task_id = self.current_task_id or TaskID.for_normal_task(self.job_id)
+            oid = ObjectID.for_put(task_id, self._put_counter.next())
+            self.device_objects[oid.binary()] = value
+            return {
+                "dev": oid.binary(),
+                "owner": self.serve_addr,
+                "spec": _device_spec(value),
+            }
         return await self._pack_with_transit_async(value)
 
     async def _build_args(self, args: Sequence[Any], kwargs: Dict[str, Any]):
@@ -4274,6 +4334,9 @@ class Worker:
                     self.owner_ledger.set_location(
                         oid.binary(), res["shm"], res.get("size", 0)
                     )
+            elif "dev" in res:
+                e = _Entry("device", value=res.get("spec"), shm_name=res.get("owner", exec_addr))
+                self.memory_store._store(oid, e)
             if self.reference_counter.local_count(oid) == 0 and not self.reference_counter.is_owned(oid):
                 # the last handle died between the guard above and the store
                 # (eviction already ran and found nothing): drop the entry we

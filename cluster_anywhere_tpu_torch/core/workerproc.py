@@ -26,6 +26,7 @@ from . import serialization
 from .config import CAConfig, set_config
 from .errors import TaskCancelledError, TaskError
 from .ids import ActorID, ObjectID, TaskID
+from .object_ref import ObjectRef
 from .protocol import (
     TRACE_FIELD,
     MsgTemplate,
@@ -40,7 +41,7 @@ from .protocol import (
 # whatever else the cork holds this tick, so a burst of completions travels
 # worker→submitter as a few envelope frames (amortized acks).
 _REPLY_TMPL = MsgTemplate({"ok": True}, ("i", "results"))
-from .worker import Worker, _is_device_value, refuse_device_value, set_global_worker
+from .worker import Worker, _device_spec, _is_device_value, set_global_worker
 
 # imported after .worker so the util package's own core imports resolve
 # against a fully-initialized module
@@ -133,7 +134,9 @@ class WorkerProcess:
                 # of here, and the submitter's pin cleanup (sender liveness)
                 # must not be confused by a misrouted late ack
                 self.worker._note_transit_owners(spec)
-            value = serialization.unpack(spec["v"])
+            from ..channel.device_transport import maybe_unpack
+
+            value = maybe_unpack(serialization.unpack(spec["v"]))
             if "t" in spec:
                 # ack smuggled refs: our rehydrated handles are registered,
                 # release the sender's transit pin (borrowing protocol)
@@ -158,6 +161,19 @@ class WorkerProcess:
                     spec["oid"], None, spec.get("size", 0)
                 )
                 return self.worker.shm_store.get(name)
+        if "dev" in spec:
+            oid = spec["dev"]
+            if spec.get("owner") == self.sock_path and oid in self.worker.device_objects:
+                # the owner's own device value: the stored object itself
+                return self.worker.device_objects[oid]
+            reply = asyncio.run_coroutine_threadsafe(
+                self.worker._fetch_remote_async(spec["owner"], oid), self.loop
+            ).result(self.config.push_timeout_s)
+            from ..channel.device_transport import maybe_unpack
+
+            # a DeviceEnvelope lands on this process's device (DTensor
+            # leaves over its registered mesh)
+            return maybe_unpack(serialization.unpack(reply["packed"]))
         raise ValueError(f"bad arg spec keys: {list(spec)}")
 
     def _resolve_args(self, specs, kwspecs):
@@ -167,7 +183,13 @@ class WorkerProcess:
 
     def _package_result(self, oid_bytes: bytes, value: Any, owner: str) -> dict:
         if _is_device_value(value):
-            refuse_device_value(value, "a task result")
+            from ..channel.device_transport import settle
+
+            # the device value stays here: its producer's work must be done
+            # before a fetch packs it on another thread
+            settle(value)
+            self.worker.device_objects[oid_bytes] = value
+            return {"dev": oid_bytes, "owner": self.sock_path, "spec": _device_spec(value)}
         with serialization.ref_capture() as nested:
             data, buffers = serialization.serialize(value)
         raws = [b.raw() for b in buffers]
@@ -848,6 +870,13 @@ class WorkerProcess:
                 raise
             except BaseException as e:
                 reply_err(TaskError(repr(e), traceback.format_exc()))
+        elif m == "fetch_object":
+            try:
+                reply(packed=await self._fetch_object(msg["oid"]))
+            except asyncio.CancelledError:
+                raise
+            except BaseException as e:
+                reply_err(e)
         elif m == "owner_locate":
             # ownership-based object directory read path: this process is
             # authoritative for objects it owns (see Worker.owner_locate_async)
@@ -988,6 +1017,33 @@ class WorkerProcess:
             for name, n in (msg.get("concurrency_groups") or {}).items()
         }
         self.worker.current_actor_id = ActorID.from_hex(msg["actor_id"])
+
+    async def _fetch_object(self, oid: bytes) -> bytes:
+        value = self.worker.device_objects.get(oid)
+        if value is None:
+            e = self.worker.memory_store.get_entry(ObjectID(oid))
+            if e is None or e.state == "pending":
+                raise KeyError(f"object {oid.hex()} not found on this worker")
+            # resolve on an executor thread, NOT the IO loop: the full
+            # recovery path (confirmed pins, relocation after spill,
+            # reconstruction) drives RPCs through the loop and would
+            # deadlock/degrade if entered from it
+            value = await self.loop.run_in_executor(
+                None, self.worker._resolve_entry, ObjectRef(ObjectID(oid))
+            )
+        if _is_device_value(value):
+            # device-native: each CUDA leaf copied once to the host and
+            # handed out of band (channel/device_transport), never pickled
+            # as bytes.  The copy runs on an executor thread, not the IO
+            # loop, or a multi-GB transfer stalls heartbeats and RPC
+            # serving; the value was settled when it was stored, so that
+            # thread's stream reads finished data
+            from ..channel.device_transport import pack_device_value
+
+            return await self.loop.run_in_executor(
+                None, lambda: serialization.pack(pack_device_value(value))
+            )
+        return await self.loop.run_in_executor(None, serialization.pack, value)
 
     async def _graceful_exit(self):
         await asyncio.sleep(0.05)  # let replies flush

@@ -1,10 +1,11 @@
 """The port's flagship model, its forward step and the multi-rank dry run,
 the counterpart of the JAX package's __graft_entry__.py (`_flagship_cfg`,
-`entry`, `dryrun_multichip`).
+`entry`, `dryrun_multichip`, `_dryrun_device_plane`).
 
     fn, args = entry()        # on the card; entry(device="cpu") on the host
     logits = fn(*args)        # [4, 1024, 32000] bf16
-    dryrun_multichip(4, device="cpu")   # configs A-E on 4 gloo ranks
+    dryrun_multichip(4, device="cpu")   # configs A-E on 4 gloo ranks, then
+                                        # the device plane's DAG hop
 """
 
 from __future__ import annotations
@@ -184,3 +185,110 @@ def dryrun_multichip(n: int, device=None, backend=None, timeout: float = 900.0) 
         raise RuntimeError(f"the ranks disagree on config E's loss: {losses}")
     print(f"[dryrun] configs A-E on {n} ranks: one train step each, config E's loss "
           f"identical on every rank ({losses.pop()})")
+    dryrun_device_plane(dev)
+
+
+_STRICT = "CA_DEVICE_TRANSPORT_STRICT"
+_PLANE_PLACEMENTS = (("shard", 0),) + (("replicate",),) * 5
+
+
+class _PlaneRank:
+    """A one-rank gloo group and mesh of its own in an actor process, on
+    `device`, with the transport in strict mode."""
+
+    def __init__(self, device: str, port: int):
+        from .parallel.mesh import MeshSpec, make_mesh
+
+        os.environ[_STRICT] = "1"
+        os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        self.mesh = make_mesh(MeshSpec(), device=device, backend="gloo")
+        self.device = torch.device(device if device == "cpu" else
+                                   f"cuda:{torch.cuda.current_device()}")
+
+
+class _PlaneProducer(_PlaneRank):
+    def make(self, scale: float):
+        """A DTensor sharded on dim 0 of the mesh and a bf16 tensor."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        x = torch.arange(16, dtype=torch.float32, device=self.device) * scale
+        placements = [Shard(0)] + [Replicate()] * 5
+        return {"x": DTensor.from_local(x, self.mesh, placements, run_check=False),
+                "kv": x.to(torch.bfloat16).reshape(4, 4), "scale": scale}
+
+
+class _PlaneConsumer(_PlaneRank):
+    def __init__(self, device: str, port: int):
+        super().__init__(device, port)
+        from .channel import device_transport
+
+        device_transport.set_transfer_mesh(self.mesh)
+
+    def reduce(self, v):
+        """The sums of the landed leaves and the transport's counters;
+        raises where a leaf lost its placements, dtype or device."""
+        from torch.distributed.tensor import DTensor
+
+        from .channel import device_transport
+
+        x, kv = v["x"], v["kv"]
+        if not isinstance(x, DTensor) or tuple(
+                device_transport._encode_placement(p) for p in x.placements) != _PLANE_PLACEMENTS:
+            raise RuntimeError(f"the DTensor leaf landed as {type(x).__name__} "
+                               f"{getattr(x, 'placements', None)}")
+        if x.to_local().device != self.device or kv.device != self.device:
+            raise RuntimeError(f"landed on {x.to_local().device} and {kv.device}, "
+                               f"want {self.device}")
+        if kv.dtype != torch.bfloat16:
+            raise RuntimeError(f"the bf16 leaf landed as {kv.dtype}")
+        return float(x.to_local().sum()), float(kv.float().sum()), device_transport.stats()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_device_plane(device=None) -> None:
+    """One compiled-DAG step in which two actor processes pass a DTensor
+    (Shard(0) on a one-rank mesh) and a bf16 tensor through the
+    tensor-transport channel under strict mode, so that a landing that
+    drops a placement raises: the runtime layer between programs, which
+    the SPMD dry run cannot cover (__graft_entry__._dryrun_device_plane).
+    device=None is the card (each actor holds half of it); device="cpu"
+    runs on the host.  Starts and shuts down a session of its own."""
+    import cluster_anywhere_tpu_torch as ca
+
+    from .dag import InputNode
+
+    dev = resolve_device(device)
+    gpu = 0.5 if dev.type == "cuda" else 0
+    prev = os.environ.get(_STRICT)
+    os.environ[_STRICT] = "1"
+    ca.init(num_cpus=2, **({} if gpu else {"num_gpus": 0}))
+    try:
+        producer = ca.remote(_PlaneProducer).options(num_gpus=gpu).remote(dev.type, _free_port())
+        consumer = ca.remote(_PlaneConsumer).options(num_gpus=gpu).remote(dev.type, _free_port())
+        with InputNode() as inp:
+            out = consumer.reduce.bind(producer.make.bind(inp).with_tensor_transport())
+        dag = out.experimental_compile()
+        try:
+            x_sum, kv_sum, st = dag.execute(2.0).get(timeout=120)
+        finally:
+            dag.teardown()
+        want = 2.0 * 15 * 16 / 2
+        landed = "cuda_landings" if dev.type == "cuda" else "cpu_landings"
+        if ((x_sum, kv_sum) != (want, want) or st["leaves_landed"] != 2
+                or st[landed] != 2 or st["sharded_landings"] != 1 or st["host_assembles"]):
+            raise RuntimeError(f"device plane: sums {x_sum}, {kv_sum} (want {want}), "
+                               f"transport stats {st}")
+    finally:
+        ca.shutdown()
+        if prev is None:
+            os.environ.pop(_STRICT, None)
+        else:
+            os.environ[_STRICT] = prev
+    print(f"[dryrun] device plane: DAG hop across processes ok (a Shard(0) DTensor and a "
+          f"bf16 tensor, strict, landed on {dev.type}, sum={x_sum})")

@@ -7,8 +7,9 @@ Serve HTTP Request, a dict or a bare prompt string, and run in the caller's
 process or as the replicas of `build_llm_deployment` /
 `build_continuous_llm_deployment`.
 
-Compiled-DAG token streaming (`dag_stream`) needs dag/ and channel/, which
-are not ported yet (ROADMAP Queue 1 item 4).
+`ContinuousLLMServer.dag_stream` streams tokens to the Serve proxy over a
+pre-opened shm channel (serve/dag_stream.py), the proxy's default SSE
+transport under `serve_compiled_dag`.
 """
 
 from __future__ import annotations
@@ -263,11 +264,48 @@ class ContinuousLLMServer:
             self._forget(req)
 
     def dag_stream(self, request) -> dict:
-        """Compiled-DAG token streaming needs dag/ and channel/; until they
-        are ported the proxy streams over per-token RPC frames instead."""
-        from ..core.errors import not_ported
+        """Compiled-DAG streaming: decode-step -> detokenize -> stream-out
+        without a per-token RPC.  Submits the prompt, pre-opens a shm
+        channel, and returns its spec; a forwarder thread pushes
+        {"token_id","text"} frames into the channel and the proxy-side
+        DagStreamReader futex-waits on them.  The only RPC left on the hot
+        path is this handshake."""
+        from ..channel.shm_channel import BufferedShmChannel, ChannelClosedError
+        from ..core.config import get_config
+        from ..serve.dag_stream import DAG_EOF, DAG_ERR
 
-        raise not_ported("ContinuousLLMServer.dag_stream (compiled-DAG streaming)", "4")
+        cfg = get_config()
+        _, req, q = self._submit(_parse_body(request))
+        ch = BufferedShmChannel(
+            num_readers=1, num_buffers=max(2, cfg.serve_dag_stream_buffers)
+        )
+        spec = ch.spec()
+
+        def forward():
+            try:
+                while True:
+                    t = q.get(timeout=120)
+                    if t is None:
+                        ch.write(DAG_EOF, timeout=30)
+                        # drain barrier: release() unlinks the segment, so
+                        # wait until the proxy acked the EOF frame first
+                        ch.wait_consumed(30.0)
+                        return
+                    if isinstance(t, BaseException):
+                        ch.write({DAG_ERR: f"LLM engine pump died: {t!r}"}, timeout=30)
+                        ch.wait_consumed(30.0)
+                        return
+                    # 120s matches the RPC path's queue timeout: a consumer
+                    # stalled longer than that loses the stream either way
+                    ch.write({"token_id": int(t), "text": self.tok.decode([t])}, timeout=120)
+            except (ChannelClosedError, TimeoutError, queue.Empty):
+                pass  # proxy abandoned the stream; free the decode slot below
+            finally:
+                self._forget(req)
+                ch.release()
+
+        threading.Thread(target=forward, daemon=True, name="ca-dag-stream").start()
+        return spec
 
 
 class StreamingLLMIngress(ContinuousLLMServer):

@@ -99,6 +99,12 @@ class ProxyActor:
         self._routes_lock = threading.Lock()
         self._miss_lock = threading.Lock()
         self._refresh_gen = 0
+        # deployment -> False once a dag_stream handshake failed (no such
+        # method, or a replica whose shm segment this proxy can't map);
+        # avoids paying a doomed extra RPC on every subsequent SSE request
+        self._dag_stream_ok: Dict[str, bool] = {}
+        # SSE streams opened per transport, and handshakes that fell back
+        self._stream_counts = {"dag": 0, "rpc": 0, "fallbacks": 0}
         self._loop = global_worker().loop
         self._server = None
         self._started = threading.Event()
@@ -116,6 +122,13 @@ class ProxyActor:
         )
         # port 0 asks the OS for a free port: report the one it bound
         self.port = self._server.sockets[0].getsockname()[1]
+
+    def stream_stats(self) -> Dict[str, Any]:
+        """SSE streams opened over the compiled shm stream ("dag") and over
+        streaming RPC ("rpc"), handshakes that fell back, and the
+        deployments whose handshake failed."""
+        return {**self._stream_counts,
+                "failed_deployments": sorted(k for k, ok in self._dag_stream_ok.items() if not ok)}
 
     def ready(self) -> str:
         return f"http://{self.host}:{self.port}"
@@ -442,10 +455,17 @@ class ProxyActor:
                 )
 
     async def _open_stream(self, handle, req: Request, loop, wire=None):
-        """Open the token stream for one SSE request: one streaming-RPC
-        frame per token.  The compiled-DAG transport (a pre-opened shm
-        channel per request) comes with the port of dag/ and channel/
-        (ROADMAP Queue 1 item 4)."""
+        """Pick the token transport for one SSE request.
+
+        Compiled-DAG path (config.serve_compiled_dag, default on): ONE RPC
+        handshake asks the replica's `dag_stream` for a pre-opened shm
+        channel spec, then every token travels writer->futex->reader with
+        no RPC at all (see serve/dag_stream.py).  Falls back to the
+        per-token streaming-RPC path when the deployment has no dag_stream
+        method or the segment can't be mapped (cross-host replica), and
+        remembers the failure per deployment.
+        """
+        from ..core.config import get_config
 
         def _traced(fn):
             # executor threads start with a fresh context: install the
@@ -463,6 +483,28 @@ class ProxyActor:
 
             return wrapped
 
+        dep_key = f"{handle.app}/{handle.deployment}"
+        if get_config().serve_compiled_dag and self._dag_stream_ok.get(dep_key, True):
+            try:
+                spec = await loop.run_in_executor(
+                    None,
+                    _traced(
+                        lambda: handle.options(method_name="dag_stream")
+                        .remote(req)
+                        .result(timeout_s=30)
+                    ),
+                )
+                from .dag_stream import open_dag_stream
+
+                stream = open_dag_stream(spec)
+                self._stream_counts["dag"] += 1
+                return stream
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                self._dag_stream_ok[dep_key] = False
+                self._stream_counts["fallbacks"] += 1
+        self._stream_counts["rpc"] += 1
         return await loop.run_in_executor(
             None, _traced(lambda: handle.options(stream=True).remote(req))
         )

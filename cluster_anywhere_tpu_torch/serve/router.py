@@ -310,14 +310,22 @@ _router_cache_lock = threading.Lock()
 
 
 def _shared_router(app: str, deployment: str) -> Router:
-    """One router (and dispatch thread) per deployment per process — handle
-    objects are created freely (handle.method.remote()), routers are not."""
-    key = (app, deployment)
+    """One router (and dispatch thread) per deployment per process and
+    session — handle objects are created freely (handle.method.remote()),
+    routers are not.  A router knows one session's replicas: a driver that
+    shuts down and starts another session gets new routers, even for a
+    deployment of the same name, and the old session's are dropped."""
+    from ..core.worker import try_global_worker
+
+    session = getattr(try_global_worker(), "session_dir", None)
+    key = (app, deployment, session)
     r = _router_cache.get(key)
     if r is None:
         with _router_cache_lock:
             r = _router_cache.get(key)
             if r is None:
+                for old in [k for k in _router_cache if k[2] != session]:
+                    del _router_cache[old]
                 r = Router(app, deployment)
                 _router_cache[key] = r
     return r

@@ -7,9 +7,10 @@ The session lives inside a TrainWorker actor. `report()` persists any
 checkpoint to storage (worker-side upload, like the reference's
 StorageContext train/_internal/storage.py) and enqueues the report for
 the driver to poll. By default it does NOT block the training thread.
-Counterpart of cluster_anywhere_tpu/train/session.py: a report carries
-host values only, and a CUDA tensor in its metrics is refused (device
-objects are not ported), never copied to the host quietly.
+Counterpart of cluster_anywhere_tpu/train/session.py.  A CUDA tensor in a
+report's metrics makes the polled reports a device value, as a jax.Array
+does in the JAX package: it stays in the worker and lands on the driver's
+device when the driver reads it.
 """
 
 from __future__ import annotations
@@ -93,10 +94,6 @@ class _Session:
     def report(
         self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None
     ) -> None:
-        from ..core.worker import _is_device_value, refuse_device_value
-
-        if _is_device_value(metrics):
-            refuse_device_value(metrics, "train.report")
         entry: Dict[str, Any] = {"metrics": dict(metrics), "seq": self.report_seq}
         if checkpoint is not None:
             if checkpoint.is_sharded():

@@ -132,6 +132,27 @@ _TRANSFER_DESCS = {
     "quant_ops": "quantized collective ops completed",
 }
 
+_channel_shipped: Dict[str, int] = {}
+_CHANNEL_DESCS = {
+    "writes": "shm-channel payloads published by this process",
+    "reads": "shm-channel payloads consumed by this process",
+    "spills": "oversized channel payloads routed through the object store",
+    "backpressure_waits": "channel writes that blocked on a reader ack",
+    "closes": "channel close flags raised",
+}
+
+_dag_shipped: Dict[str, int] = {}
+_DAG_DESCS = {
+    "compiles": "compiled DAGs built (incl. recompiles)",
+    "recompiles": "compiled DAGs rebuilt after an actor restart",
+    "executions": "compiled-DAG execute() submissions",
+    "results": "compiled-DAG ticks whose outputs the driver consumed",
+    "backpressure_waits": "executes that blocked at max_inflight_executions",
+    "timeouts": "DagTimeoutError raised (stalled node named)",
+    "actor_deaths": "DeadActorError raised (loop died mid-execute)",
+    "teardowns": "compiled-DAG teardowns",
+}
+
 
 _lease_shipped: Dict[str, int] = {}
 _LEASE_DESCS = {
@@ -171,6 +192,26 @@ def _wire_records() -> List[dict]:
     from ..core.protocol import WIRE_STATS
 
     return _counter_deltas("ca_rpc_", WIRE_STATS, _wire_shipped, _WIRE_DESCS)
+
+
+def _channel_records() -> List[dict]:
+    """Shm-channel counters (channel/shm_channel.py CHANNEL_STATS) as
+    ca_channel_* records — the data plane under compiled DAGs and the serve
+    token-stream path."""
+    from ..channel.shm_channel import CHANNEL_STATS
+
+    return _counter_deltas(
+        "ca_channel_", CHANNEL_STATS, _channel_shipped, _CHANNEL_DESCS
+    )
+
+
+def _dag_records() -> List[dict]:
+    """Compiled-DAG driver counters (dag/compiled.py DAG_STATS) as ca_dag_*
+    records: executions/results volume plus the failure-semantics series
+    (timeouts, actor deaths, recompiles)."""
+    from ..dag.compiled import DAG_STATS
+
+    return _counter_deltas("ca_dag_", DAG_STATS, _dag_shipped, _DAG_DESCS)
 
 
 def _lease_records() -> List[dict]:
@@ -348,6 +389,8 @@ def flush_once():
     for m in metrics:
         batch.extend(m._drain())
     batch.extend(_wire_records())
+    batch.extend(_channel_records())
+    batch.extend(_dag_records())
     batch.extend(_lease_records())
     batch.extend(_owner_records())
     batch.extend(_transfer_records())

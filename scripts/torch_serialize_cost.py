@@ -1,11 +1,12 @@
-"""What the CUDA-tensor guard in the port's serializer costs a Serve request.
+"""What the CUDA-tensor reducer in the port's serializer costs a Serve request.
 
 Where torch is loaded, `cluster_anywhere_tpu_torch.core.serialization`
-pickles through Pickler subclasses whose `reducer_override` refuses a CUDA
-tensor, in place of plain `pickle.dumps`.  This script times `serialize()`
-of what one HTTP request of the `serve-http` cell sends over the runtime
-(the proxy's `Request` with a 441-token JSON body, and the replica's answer
-dict), with the guard and without it, in one process on the host's CPU.
+pickles through Pickler subclasses whose `reducer_override` sends a CUDA
+tensor as a transport leaf, in place of plain `pickle.dumps`.  This script
+times `serialize()` of what one HTTP request of the `serve-http` cell sends
+over the runtime (the proxy's `Request` with a 441-token JSON body, and the
+replica's answer dict), with the reducer and without it, in one process on
+the host's CPU.
 
     python3 scripts/torch_serialize_cost.py [--number N] [--repeat R]
 
@@ -18,7 +19,7 @@ import os
 import sys
 import timeit
 
-import torch  # noqa: F401  (loaded, as in every replica: the guard is on)
+import torch  # noqa: F401  (loaded, as in every replica: the reducer is on)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from cluster_anywhere_tpu_torch.core import serialization
@@ -41,17 +42,17 @@ def main():
     ap.add_argument("--number", type=int, default=20000)
     ap.add_argument("--repeat", type=int, default=7)
     args = ap.parse_args()
-    assert serialization._guarded_picklers() is not None, "the guard is not on"
+    assert serialization._device_picklers() is not None, "the reducer is not on"
     out = {}
     for name, value in _values().items():
-        guarded = _best_us(lambda: serialization.serialize(value), args.number, args.repeat)
-        guard = serialization._guarded_picklers
-        serialization._guarded_picklers = lambda: None  # the path taken without torch
+        reducer = _best_us(lambda: serialization.serialize(value), args.number, args.repeat)
+        picklers = serialization._device_picklers
+        serialization._device_picklers = lambda: None  # the path taken without torch
         try:
             plain = _best_us(lambda: serialization.serialize(value), args.number, args.repeat)
         finally:
-            serialization._guarded_picklers = guard
-        out[name] = {"guarded_us": guarded, "plain_us": plain, "added_us": guarded - plain}
+            serialization._device_picklers = picklers
+        out[name] = {"reducer_us": reducer, "plain_us": plain, "added_us": reducer - plain}
     print(json.dumps({"serialize_us": out}))
 
 

@@ -1,5 +1,6 @@
-"""The port's configs accept every field of the JAX package's configs, and
-the serving classes' Serve hook: TransformerConfig takes the parallel-stack
+"""The port's configs accept every field of the JAX package's configs (the
+runtime's CAConfig has exactly its fields), and the serving classes' Serve
+hook: TransformerConfig takes the parallel-stack
 fields with the JAX package's checks, remat
 and attn_impl work in the training forward, ProcessorConfig takes the Data
 fields, and LLMServer.reconfigure sets the sampling defaults.
@@ -59,6 +60,36 @@ def test_every_jax_transformer_field_exists_in_the_port():
     jfields = {f.name for f in dataclasses.fields(jtf.TransformerConfig)}
     tfields = {f.name for f in dataclasses.fields(ttf.TransformerConfig)}
     assert jfields <= tfields, jfields - tfields
+
+
+def test_runtime_config_fields_are_the_jax_packages():
+    """The port's CAConfig has exactly the JAX package's fields, with its
+    defaults, except session_dir_root, whose default is the port's own by
+    design; ca.init takes every one of them (the compiled-DAG fields were
+    refused as unknown keys before the DAG plane was ported)."""
+    from cluster_anywhere_tpu.core.config import CAConfig as JConfig
+    from cluster_anywhere_tpu_torch.core.config import CAConfig
+
+    jcfg, tcfg = JConfig(), CAConfig()
+    jfields = {f.name for f in dataclasses.fields(JConfig)}
+    assert {f.name for f in dataclasses.fields(CAConfig)} == jfields
+    differ = {n for n in jfields if getattr(jcfg, n) != getattr(tcfg, n)}
+    assert differ == {"session_dir_root"}, differ
+    for name, value in (("dag_execute_timeout_s", 300.0), ("serve_compiled_dag", True),
+                        ("serve_dag_stream_buffers", 8)):
+        assert getattr(tcfg, name) == value
+
+
+def test_runtime_config_env_overrides_the_dag_fields(monkeypatch):
+    from cluster_anywhere_tpu_torch.core.config import CAConfig
+
+    monkeypatch.setenv("CA_SERVE_COMPILED_DAG", "0")
+    monkeypatch.setenv("CA_DAG_EXECUTE_TIMEOUT_S", "30")
+    monkeypatch.setenv("CA_SERVE_DAG_STREAM_BUFFERS", "4")
+    cfg = CAConfig()
+    assert (cfg.serve_compiled_dag, cfg.dag_execute_timeout_s, cfg.serve_dag_stream_buffers) == (
+        False, 30.0, 4)
+    assert CAConfig.from_json(cfg.to_json()).serve_compiled_dag is False
 
 
 @pytest.mark.parametrize("field, value", [

@@ -267,12 +267,15 @@ def test_port_imports_no_jax():
         "       or m == 'cluster_anywhere_tpu' or m.startswith('cluster_anywhere_tpu.')]\n"
         "print('LOADED', len([m for m in sys.modules if m.startswith('cluster_anywhere_tpu_torch')]))\n"
         "assert not bad, bad\n"
+        "new = ['channel', 'channel.shm_channel', 'channel.device_transport', 'dag', 'dag.node',\n"
+        "       'dag.operation', 'dag.compiled', 'serve.dag_stream']\n"
+        "assert all('cluster_anywhere_tpu_torch.' + m in sys.modules for m in new)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split("LOADED")[1]) >= 73
+    assert int(proc.stdout.split("LOADED")[1]) >= 106
 
 
 @pytest.mark.parametrize("entry", ["init_params", "from_jax_params", "worker", "llm_server",

@@ -77,7 +77,8 @@ class _Probe:
 
 
 class _FakeCuda(torch.Tensor):
-    """A CPU tensor that says it is on the card: what the refusals test for."""
+    """A CPU tensor that says it is on the card: how the device plane is
+    reached without one."""
 
     @property
     def is_cuda(self):
@@ -228,21 +229,29 @@ def test_gpu_resource_from_env_override():
 
 
 def test_refusals_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ca.DeviceRef()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _Counter.remote().inc.bind()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _add.bind(1, 2)
+    """Each site that refused a device value while device objects were
+    not ported (the test's name is from then) now does what the JAX
+    package does: DeviceRef constructs, .bind makes DAG nodes, a CUDA value
+    put stays in the driver, as a task argument it lands on the task's
+    device (the CPU here), nested deep it travels by its reducer, and a
+    task's CUDA result stays in the worker and lands in the getter."""
+    from cluster_anywhere_tpu_torch.core.ids import ObjectID
+    from cluster_anywhere_tpu_torch.core.worker import global_worker
+    from cluster_anywhere_tpu_torch.dag import ClassMethodNode, FunctionNode
+
+    assert isinstance(ca.DeviceRef(ObjectID.from_random()), ca.ObjectRef)
+    assert type(_Counter.remote().inc.bind()) is ClassMethodNode
+    assert type(_add.bind(1, 2)) is FunctionNode
+    assert ca.get(_add.bind(1, 2).execute(), timeout=T) == 3
     cuda_like = torch.ones(3).as_subclass(_FakeCuda)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ca.put({"x": cuda_like})
-    with pytest.raises(ca.TaskError, match="NotImplementedError.*item 4"):
-        ca.get(_add.remote(cuda_like, 1), timeout=T)  # refused at submission
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ca.put([object(), _Holder(cuda_like)])  # nested deep: the pickler refuses it
-    with pytest.raises(ca.TaskError, match="NotImplementedError.*task result.*item 4"):
-        ca.get(_cuda_result.remote(), timeout=T)
+    ref = ca.put({"x": cuda_like})
+    assert global_worker().device_objects[ref.id.binary()]["x"] is cuda_like
+    got = ca.get(_add.remote(cuda_like, 1), timeout=T)  # landed on the task's CPU
+    assert type(got) is torch.Tensor and torch.equal(got, torch.full((3,), 2.0))
+    nested = ca.get(ca.put([object(), _Holder(cuda_like)]), timeout=T)
+    assert nested[1].t is cuda_like  # the driver's own value, never pickled
+    got = ca.get(_cuda_result.remote(), timeout=T)
+    assert type(got) is torch.Tensor and torch.equal(got, torch.ones(2))
 
 
 @ca.remote

@@ -135,8 +135,14 @@ def test_continuous_deployment_over_http_and_sse(base_url):
     streamed = handle.options(method_name="stream", stream=True).remote({"prompt": "hello there"})
     assert [e["token_id"] for e in events] == [t["token_id"] for t in streamed]
     assert len(events) == 6
-    with pytest.raises(Exception, match="item 4"):
-        handle.options(method_name="dag_stream").remote({"prompt": "x"}).result(timeout_s=T)
+    # the compiled stream's handshake: a shm channel spec whose frames are
+    # the same tokens (tests/test_torch_device_plane.py holds the proxy's use)
+    from cluster_anywhere_tpu_torch.serve.dag_stream import open_dag_stream
+
+    spec = handle.options(method_name="dag_stream").remote({"prompt": "hello there"}).result(
+        timeout_s=T)
+    assert [f["token_id"] for f in open_dag_stream(spec, timeout_s=T)] == [
+        e["token_id"] for e in events]
     # the pump ships the batcher's counters as cluster metrics about once a second
     from cluster_anywhere_tpu_torch.util.metrics import get_metrics_snapshot
 
