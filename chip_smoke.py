@@ -113,7 +113,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      execute's ms (median of 5 after a warm-up); then one SSE wave of the
      serve-http cell with serve_compiled_dag=False (the streaming-RPC
      transport), its TTFT and token inter-arrival printed beside phase
-     4b's on the compiled stream.  Under one watchdog.
+     4b's on the compiled stream.  Under one watchdog.  After every ref
+     is dropped the Prefiller holds no device object and at most 80 MB
+     above its level after the first prefill (the owner releases what an
+     actor holds).
+  10. the RL library (cluster_anywhere_tpu_torch.rl), which runs no flash
+     kernel (its launches are zeroed before and must read 0 after):
+     rl-learners, every learner (PPO, recurrent PPO, DQN with PER, IMPALA,
+     APPO, SAC, TD3, BC, CQL, MARWIL, DreamerV3's world-model and
+     actor-critic steps) 3 updates on the card held to the same 3 on the
+     CPU from the same params, batches and noise (losses 1e-5 relative,
+     params 1e-4 relative L2), each update's ms on both; then on a session of the port's
+     runtime of its own, rl-ppo, tests/test_rl.py's PPO on CartPole (2
+     runners x 4 envs, rollout 128, 6 epochs, 12 iterations) with the
+     learner on the card and the runners as CPU actors, which must learn
+     (the final evaluation above max(2 x the first, 80)), its iteration,
+     update and sampling ms, env steps/s and the device's busy share of a
+     profiled iteration; rl-ppo-dag, the same over the compiled DAG, whose
+     first rollouts must equal rl-ppo's bit for bit and whose every
+     rollout leaf must land on cuda in the driver; and rl-dreamer,
+     train_dreamer on CartPole at tests/test_rl.py's DreamerConfig for 22
+     episodes, its world-model and actor-critic update ms.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
@@ -2531,6 +2551,9 @@ DP_DEADLINE_S = 600  # the whole phase, under one watchdog
 DP_REPS = 5  # timed hops and executes, each a median over these
 DP_SEEDS = (0, 1, 2)  # the prompt sets of dag-transport; seed 0 is the generate cell's
 STRICT = "CA_DEVICE_TRANSPORT_STRICT"
+# what the Prefiller may hold, after every ref is dropped, above its level
+# after the first prefill (which held one result): its results are released
+DP_HELD_SLACK = 80_000_000
 
 
 def generate_prompts(torch, cfg, seed, device):
@@ -2891,10 +2914,15 @@ def phase_device_plane(torch, attn, cfg, gen_tokens, server_tokens, compiled_sse
                 f"with the weights alone, {one['before_hop']['allocated']} B after the first "
                 f"prefill, before the hop ({one['before_hop']['device_objects']} device objects "
                 f"held), {held['allocated']} B with {held['device_objects']} device objects held "
-                f"after the driver dropped every ref (an actor's result is owned by its caller: "
-                f"the actor keeps what it returned, as the JAX package's does); its flash_fwd "
+                f"after the driver dropped every ref (the owner releases what the actor holds; "
+                f"bound: {DP_HELD_SLACK} B above the first prefill's level); its flash_fwd "
                 f"launches {launches}")
             check(launches > 0, f"the Prefiller never launched flash_fwd: {held}")
+            check(held["device_objects"] == 0
+                  and held["allocated"] <= one["before_hop"]["allocated"] + DP_HELD_SLACK,
+                  f"[device-ref] the Prefiller holds {held['device_objects']} device objects and "
+                  f"{held['allocated']} B after every ref was dropped, against "
+                  f"{one['before_hop']['allocated']} B after its first prefill")
             for a in (prefiller, decoder):
                 ca.kill(a)
 
@@ -2927,6 +2955,468 @@ def phase_device_plane(torch, attn, cfg, gen_tokens, server_tokens, compiled_sse
     log(f"[device-plane] phase 9 in {time.perf_counter() - t_phase:.1f} s; none of {len(pids)} "
         f"processes of its session left")
     return launches + rpc_launches
+
+
+RL_DEADLINE_S = 600  # the whole phase, under one watchdog
+RL_UPDATES = 3  # each learner's updates on the card and on the CPU
+RL_TOL = {"loss_rel": 1e-5, "param_rel_l2": 1e-4}
+RL_ITERS = 12
+RL_PPO = dict(lr=3e-3, rollout_length=128, epochs=6, seed=3)  # tests/test_rl.py:61-80
+RL_RUNNERS, RL_ENVS = 2, 4
+RL_DREAMER = dict(obs_dim=4, num_actions=2, ac_lr=3e-4, entropy=1e-2, horizon=15)  # :615-617
+RL_DREAMER_RUN = dict(episodes=22, updates_per_episode=10, seed=0)  # bounded to fit the phase
+
+
+def rl_cases():
+    """Each learner of the rl-learners cell: name -> (make(device), the
+    batches of its RL_UPDATES updates, their noise or None), at the
+    widths AlgorithmConfig and DreamerConfig give and the batch sizes
+    their algorithms feed them (rl-ppo's PPO batch: 2 runners x 4 envs x
+    128 steps)."""
+    from cluster_anywhere_tpu_torch import rl
+    from cluster_anywhere_tpu_torch.rl.learner import SACLearner, TD3Learner
+    from cluster_anywhere_tpu_torch.rl.module import (
+        DeterministicPolicyModule, SquashedGaussianModule, TwinQModule)
+
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+
+    def flat(n=1024, d=4):
+        return {"obs": rng.normal(size=(n, d)).astype(f32), "actions": rng.integers(0, 2, n).astype(np.int32),
+                "logp_old": (np.log(0.5) + rng.normal(0, 0.2, n)).astype(f32),
+                "advantages": rng.normal(size=n).astype(f32), "returns": rng.normal(size=n).astype(f32)}
+
+    def seq(T=128, N=8, d=3, h=64):
+        return {"obs": rng.normal(size=(T, N, d)).astype(f32),
+                "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+                "logp_old": (np.log(0.5) + rng.normal(0, 0.2, (T, N))).astype(f32),
+                "dones": (rng.random((T, N)) < 0.1).astype(f32),
+                "advantages": rng.normal(size=(T, N)).astype(f32),
+                "returns": rng.normal(size=(T, N)).astype(f32), "state0": rng.normal(size=(N, h)).astype(f32)}
+
+    def trans(n=64, d=4, act_dim=0, per=False):
+        b = {"obs": rng.normal(size=(n, d)).astype(f32),
+             "actions": rng.uniform(-2, 2, (n, act_dim)).astype(f32) if act_dim
+             else rng.integers(0, 2, n).astype(np.int32),
+             "rewards": rng.normal(size=n).astype(f32), "dones": (rng.random(n) < 0.1).astype(f32),
+             "next_obs": rng.normal(size=(n, d)).astype(f32)}
+        if per:
+            b["weights"] = rng.uniform(0.2, 1.0, n).astype(f32)
+            b["indices"] = np.arange(n, dtype=np.int64)
+        return b
+
+    def rollout(T=64, N=4, d=4):
+        return {"obs": rng.normal(size=(T, N, d)).astype(f32),
+                "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+                "rewards": rng.normal(size=(T, N)).astype(f32), "dones": rng.random((T, N)) < 0.05,
+                "logp": (np.log(0.5) + rng.normal(0, 0.2, (T, N))).astype(f32),
+                "next_obs": rng.normal(size=(N, d)).astype(f32)}
+
+    def dreamer_batch(c):
+        B, L = c.batch_size, c.seq_len
+        first = (rng.random((B, L)) < 0.05).astype(f32)
+        first[:, 0] = 1.0
+        return {"obs": rng.normal(size=(B, L, c.obs_dim)).astype(f32),
+                "actions": rng.integers(0, c.num_actions, (B, L)).astype(np.int32),
+                "rewards": rng.normal(size=(B, L)).astype(f32),
+                "cont": (rng.random((B, L)) > 0.05).astype(f32), "is_first": first}
+
+    def dreamer_noise(c):
+        n = c.batch_size * c.seq_len
+        return {"wm": rng.gumbel(size=(c.seq_len, c.batch_size, c.groups, c.classes)).astype(f32),
+                "act": rng.gumbel(size=(c.horizon, n, c.num_actions)).astype(f32),
+                "lat": rng.gumbel(size=(c.horizon, n, c.groups, c.classes)).astype(f32)}
+
+    def many(fn):
+        return [fn() for _ in range(RL_UPDATES)]
+
+    dc = rl.DreamerConfig()
+    sac_noise = many(lambda: (rng.normal(size=(64, 1)).astype(f32), rng.normal(size=(64, 1)).astype(f32)))
+    return {
+        "PPO": (lambda d: rl.PPOLearner(rl.DiscretePolicyModule(4, 2), lr=3e-3, epochs=6, seed=3,
+                                        device=d), many(flat), None),
+        "RecurrentPPO": (lambda d: rl.RecurrentPPOLearner(rl.RecurrentPolicyModule(3, 2, 64), seed=3,
+                                                          device=d), many(seq), None),
+        "DQN-PER": (lambda d: rl.DQNLearner(rl.QModule(4, 2), target_update_freq=2, seed=3, device=d),
+                    many(lambda: trans(per=True)), None),
+        "IMPALA": (lambda d: rl.IMPALALearner(rl.DiscretePolicyModule(4, 2), seed=3, device=d),
+                   many(rollout), None),
+        "APPO": (lambda d: rl.IMPALALearner(rl.DiscretePolicyModule(4, 2), surrogate_clip=0.2, seed=3,
+                                            device=d), many(rollout), None),
+        "SAC": (lambda d: SACLearner(SquashedGaussianModule(3, 1, 2.0), TwinQModule(3, 1), seed=3,
+                                     device=d), many(lambda: trans(d=3, act_dim=1)), sac_noise),
+        "TD3": (lambda d: TD3Learner(DeterministicPolicyModule(3, 1, 2.0), TwinQModule(3, 1), seed=3,
+                                     device=d), many(lambda: trans(d=3, act_dim=1)),
+                many(lambda: rng.normal(size=(64, 1)).astype(f32))),
+        "BC": (lambda d: rl.BCLearner(rl.DiscretePolicyModule(4, 2), seed=3, device=d),
+               many(lambda: flat(256)), None),
+        "CQL": (lambda d: rl.CQLLearner(rl.QModule(4, 2), target_update_freq=2, seed=3, device=d),
+                many(lambda: trans(256)), None),
+        "MARWIL": (lambda d: rl.MARWILLearner(rl.DiscretePolicyModule(4, 2), seed=3, device=d),
+                   many(lambda: flat(256)), None),
+        "DreamerV3": (lambda d: rl.DreamerV3Learner(dc, seed=3, device=d),
+                      many(lambda: dreamer_batch(dc)), many(lambda: dreamer_noise(dc))),
+    }
+
+
+def rl_tree(learner):
+    """A learner's whole state as host arrays by path: its weights and
+    target nets (Dreamer: world model, actor-critic, target critic)."""
+    from cluster_anywhere_tpu_torch.llm._params_io import _flatten
+    from cluster_anywhere_tpu_torch.rl.module import to_numpy
+
+    if hasattr(learner, "wm"):
+        tree = {"wm": learner.wm.param_tree(), "ac": learner.ac.param_tree(),
+                "target": learner.target_critic.tree()}
+    else:
+        tree = {"weights": learner.param_tree()}
+        for name in ("target", "target_policy", "target_q"):
+            if hasattr(learner, name):
+                tree[name] = getattr(learner, name).param_tree()
+    return _flatten(to_numpy(tree))
+
+
+def rl_sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def rl_learner_pair(torch, make, batches, noises, device):
+    """The same learner on the card (device) and on the CPU, RL_UPDATES
+    updates each on the same batches and noise: {"cpu", "card"} -> the
+    trees before and after, the stats and the ms of each update."""
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", device)):
+        learner = make(dev)
+        out[key] = {"start": rl_tree(learner), "stats": [], "ms": []}
+        for i, b in enumerate(batches):
+            rl_sync(torch)
+            t0 = time.perf_counter()
+            stats = learner.update(b) if noises is None else learner.update(b, noises[i])
+            rl_sync(torch)
+            out[key]["ms"].append((time.perf_counter() - t0) * 1e3)
+            out[key]["stats"].append(stats)
+        out[key]["end"] = rl_tree(learner)
+    return out
+
+
+def rl_errors(pair):
+    """(max loss error relative to max(|a|, |b|, 1) over every stat of every
+    update, max relative L2 over every leaf after the updates)."""
+    loss = 0.0
+    for sc, sg in zip(pair["cpu"]["stats"], pair["card"]["stats"]):
+        check(sorted(sc) == sorted(sg), f"stats {sorted(sc)} on the CPU, {sorted(sg)} on the card")
+        for k in sc:
+            a, b = np.asarray(sc[k], np.float64), np.asarray(sg[k], np.float64)
+            loss = max(loss, float(np.max(np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0))))
+    param = 0.0
+    end_c, end_g = pair["cpu"]["end"], pair["card"]["end"]
+    for k in end_c:
+        a, b = end_c[k].astype(np.float64), end_g[k].astype(np.float64)
+        param = max(param, float(np.linalg.norm(a - b) / max(np.linalg.norm(a), 1e-12)))
+    return loss, param
+
+
+def rl_learners_cell(torch, card, device):
+    """rl-learners: every learner's RL_UPDATES updates on the card held to
+    the same updates on the CPU.  Returns the card's ms per update by
+    learner."""
+    rows = {}
+    for name, (make, batches, noises) in rl_cases().items():
+        pair = rl_learner_pair(torch, make, batches, noises, device)
+        start_c, start_g = pair["cpu"]["start"], pair["card"]["start"]
+        check(all(np.array_equal(start_c[k], start_g[k]) for k in start_c),
+              f"[rl-learners] {name}: the card's learner did not start from the CPU's params")
+        loss, param = rl_errors(pair)
+        check(loss <= RL_TOL["loss_rel"] and param <= RL_TOL["param_rel_l2"],
+              f"[rl-learners] {name}: the card against the CPU, "
+              f"losses {loss:.3e} relative (bound {RL_TOL['loss_rel']}), params {param:.3e} "
+              f"relative L2 (bound {RL_TOL['param_rel_l2']})")
+        ms_c, ms_g = pair["cpu"]["ms"], pair["card"]["ms"]
+        rows[name] = float(np.median(ms_g))
+        log(f"[rl-learners] {name}: {RL_UPDATES} updates on the card against the CPU from the same "
+            f"params, batches and noise: losses within {loss:.3e} relative, params within "
+            f"{param:.3e} relative L2; ms an update on the card "
+            f"{' '.join(f'{x:.2f}' for x in ms_g)} (the first cold), on the CPU "
+            f"{' '.join(f'{x:.2f}' for x in ms_c)}; {card}")
+    return rows
+
+
+def probe_runner_class():
+    """EnvRunner with a probe of its process (defined in a function: it
+    travels to the runner actors by value)."""
+    from cluster_anywhere_tpu_torch.rl.env_runner import EnvRunner
+
+    class ProbedRunner(EnvRunner):
+        def probe(self):
+            import os
+
+            import torch
+
+            from cluster_anywhere_tpu_torch.channel import device_transport
+            from cluster_anywhere_tpu_torch.core.worker import global_worker
+
+            return {"pid": os.getpid(), "cuda": torch.cuda.is_available(),
+                    "transport": device_transport.stats(),
+                    "device_objects": len(global_worker().device_objects),
+                    "weights_on": str(next(self.module.parameters()).device)}
+
+    return ProbedRunner
+
+
+def rl_leaf_count(rollouts):
+    return sum(1 for ro in rollouts for k, v in ro.items()
+               if k != "metrics" and isinstance(v, np.ndarray) and v.dtype.kind in "biufc")
+
+
+def rl_ppo_cell(torch, ca, rl, compiled_dag, tag, device):
+    """rl-ppo (RPC) or rl-ppo-dag: RL_ITERS iterations of tests/test_rl.py's
+    PPO with the learner on the card and the runners as CPU actors, one
+    more under torch.profiler.  Returns its numbers."""
+    from cluster_anywhere_tpu_torch.channel import device_transport
+    from cluster_anywhere_tpu_torch.core.worker import global_worker
+
+    held_before = len(global_worker().device_objects)
+    device_transport.reset_stats()
+    algo = (rl.AlgorithmConfig("PPO").environment("CartPole-v1")
+            .env_runners(RL_RUNNERS, num_envs_per_runner=RL_ENVS)
+            .training(**RL_PPO, compiled_dag=compiled_dag,
+                      device=None if device == "cuda" else device).build())
+    try:
+        check(next(algo.learner.module.parameters()).device.type == device,
+              f"[{tag}] the learner is not on {device}")
+        sample_ms, update_ms, first, leaves = [], [], [], [0]
+        inner_sample, inner_update = algo._sample, algo.learner.update
+
+        def sample(use_dag):
+            t0 = time.perf_counter()
+            out = inner_sample(use_dag)
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+            if not first:
+                first.append([{k: v if k == "metrics" else np.array(v) for k, v in ro.items()}
+                              for ro in out])
+            leaves[0] += rl_leaf_count(out)
+            return out
+
+        def update(batch):
+            rl_sync(torch)
+            t0 = time.perf_counter()
+            out = inner_update(batch)
+            rl_sync(torch)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        algo._sample, algo.learner.update = sample, update
+        first_eval = algo.evaluate(3)
+        iter_ms, returns, steps = [], [], 0
+        for _ in range(RL_ITERS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            iter_ms.append((time.perf_counter() - t0) * 1e3)
+            steps += r["env_steps_this_iter"]
+            returns.append(r.get("episode_return_mean"))
+        final_eval = algo.evaluate(3)
+        busy = rl_device_busy(torch, algo.train)
+        probes = ca.get([r.probe.remote() for r in algo.runners], timeout=120)
+        transport = device_transport.stats()
+    finally:
+        algo.stop()
+    check(final_eval > max(2 * first_eval, 80.0),
+          f"[{tag}] PPO did not learn: evaluation {first_eval} before, {final_eval} after "
+          f"{RL_ITERS} iterations; returns {returns}")
+    # the learner's CUDA weights land on the runners' CPU (on a host
+    # rehearsal they are CPU tensors and pickle as they are)
+    check(all(not p["cuda"] and p["weights_on"] == "cpu" and p["device_objects"] == 0
+              and p["transport"]["cuda_landings"] == 0
+              and (device != "cuda" or p["transport"]["cpu_landings"] > 0) for p in probes),
+          f"[{tag}] the runners: {probes}")
+    check(len(global_worker().device_objects) == held_before,
+          f"[{tag}] the driver holds {len(global_worker().device_objects) - held_before} more "
+          f"device objects")
+    return {"first_eval": first_eval, "final_eval": final_eval, "returns": returns,
+            "iter_ms": iter_ms, "sample_ms": sample_ms, "update_ms": update_ms,
+            "steps_s": steps / (sum(iter_ms) / 1e3), "busy": busy, "first": first[0],
+            "leaves": leaves[0], "transport": transport, "probes": probes}
+
+
+def rl_device_busy(torch, fn):
+    """(device busy ms, wall ms) of one fn() under torch.profiler; None
+    where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rl_sync(torch)
+        t0 = time.perf_counter()
+        fn()
+        rl_sync(torch)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.self_device_time_total > 0]
+    if not kernels:
+        return None
+    return sum(e.self_device_time_total for e in kernels) / 1e3, wall
+
+
+def rl_ppo_report(tag, got, card):
+    busy = got["busy"]
+    share = ("not measured (the profiler recorded no device time)" if busy is None else
+             f"{busy[0]:.2f} device-busy ms of a {busy[1]:.2f}-ms profiled iteration "
+             f"({busy[0] / busy[1] * 100:.1f}%)")
+    med_iter, med_upd = np.median(got["iter_ms"]), np.median(got["update_ms"])
+    log(f"[{tag}] PPO on CartPole, {RL_RUNNERS} runners x {RL_ENVS} envs, rollout "
+        f"{RL_PPO['rollout_length']}, {RL_PPO['epochs']} epochs, lr {RL_PPO['lr']}, seed "
+        f"{RL_PPO['seed']}, the learner on the card: evaluation {got['first_eval']:.1f} before, "
+        f"{got['final_eval']:.1f} after {RL_ITERS} iterations (returns "
+        f"{[None if r is None else round(r, 1) for r in got['returns']]}); iteration median "
+        f"{med_iter:.2f} ms (first {got['iter_ms'][0]:.2f}); the learner's update median "
+        f"{med_upd:.2f} ms ({med_upd / med_iter * 100:.1f}% of an iteration), sampling median "
+        f"{np.median(got['sample_ms']):.2f} ms; {got['steps_s']:.0f} env steps/s; the device busy: "
+        f"{share}; the runners (pids {[p['pid'] for p in got['probes']]}) see no GPU, their "
+        f"weights on the CPU ({sum(p['transport']['cpu_landings'] for p in got['probes'])} leaves "
+        f"landed there), 0 device objects held; {card}")
+
+
+def rl_dreamer_cell(torch, rl, card, device):
+    """rl-dreamer: train_dreamer on CartPole at tests/test_rl.py's config,
+    the learner on the card, RL_DREAMER_RUN's bounded episodes; each
+    world-model and actor-critic step timed."""
+    from cluster_anywhere_tpu_torch.rl import dreamer
+    from cluster_anywhere_tpu_torch.rl.env import CartPole
+
+    times = {"wm_update": [], "ac_update": []}
+    inner = {k: getattr(dreamer.DreamerV3Learner, k) for k in times}
+
+    def timed(name):
+        def call(self, *a):
+            rl_sync(torch)
+            t0 = time.perf_counter()
+            out = inner[name](self, *a)
+            rl_sync(torch)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    t0 = time.perf_counter()
+    for k in times:
+        setattr(dreamer.DreamerV3Learner, k, timed(k))
+    try:
+        learner = rl.train_dreamer(CartPole, cfg=rl.DreamerConfig(**RL_DREAMER), **RL_DREAMER_RUN,
+                                   device=None if device == "cuda" else device)
+    finally:
+        for k, fn in inner.items():
+            setattr(dreamer.DreamerV3Learner, k, fn)
+    wall = time.perf_counter() - t0
+    stats = learner.last_stats
+    check(learner.device.type == device and next(learner.wm.parameters()).device.type == device,
+          f"[rl-dreamer] the learner is not on {device}")
+    check(len(times["wm_update"]) > 0 and len(times["wm_update"]) == len(times["ac_update"]),
+          f"[rl-dreamer] {len(times['wm_update'])} world-model and {len(times['ac_update'])} "
+          f"actor-critic updates")
+    check(all(np.isfinite(v) for v in stats.values()), f"[rl-dreamer] stats {stats}")
+    rets = learner.episode_returns
+    log(f"[rl-dreamer] train_dreamer on CartPole (DreamerConfig {RL_DREAMER}), "
+        f"{RL_DREAMER_RUN['episodes']} episodes, {len(times['wm_update'])} updates, the learner "
+        f"on the card: {wall:.1f} s; world-model update median "
+        f"{np.median(times['wm_update']):.2f} ms, actor-critic update median "
+        f"{np.median(times['ac_update']):.2f} ms; episode returns first 5 {rets[:5]}, last 5 "
+        f"{rets[-5:]}; last stats {({k: round(v, 4) for k, v in stats.items()})}; {card}")
+
+
+def memory_report():
+    """The host's memory as the runtime's memory monitor reads it: the
+    cgroup's usage where it has one, and the used share the monitor holds
+    to its 0.95 threshold (above it the head kills a worker)."""
+    from cluster_anywhere_tpu_torch.core import memory_monitor as mm
+
+    parts = []
+    for d, cur, lim in ((mm._CG2, "memory.current", "memory.max"),
+                        (mm._CG1, "memory.usage_in_bytes", "memory.limit_in_bytes")):
+        c, m = mm._read_int(os.path.join(d, cur)), mm._read_int(os.path.join(d, lim))
+        if c is not None:
+            limit = f"{m / 2**30:.2f} GiB" if m and m < mm._NO_LIMIT else "no limit"
+            parts.append(f"{d}/{cur} {c / 2**30:.2f} GiB of {limit}")
+            break
+    used, total = mm.MemoryMonitor().sample() or (0, 0)
+    parts.append(f"the monitor's used {used / 2**30:.2f} GiB of {total / 2**30:.2f} "
+                 f"({used / max(total, 1):.3f}, kills above 0.95)")
+    return "; ".join(parts)
+
+
+def phase_rl(torch, attn, device="cuda"):
+    """Phase 10, the RL library on a session of the port's runtime of its
+    own: rl-learners, rl-ppo, rl-ppo-dag, rl-dreamer, each checked and
+    logged as it ends.  device="cpu" rehearses it on the host (the card's
+    checks then hold the CPU to itself)."""
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch import rl
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.rl import algorithm
+    from cluster_anywhere_tpu_torch.util import state
+
+    t_phase = time.perf_counter()
+    card = gpu_clocks("name,power.limit") if device == "cuda" else "cpu"
+    zero_launch_counts(attn)
+    # fp32 products in every learner, on both devices
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    with watchdog(RL_DEADLINE_S, "the RL phase"):
+        rl_learners_cell(torch, card, device)
+    info = ca.init(num_cpus=4, **({} if device == "cuda" else {"num_gpus": 1}))
+    log(f"[rl] host memory at the session's start: {memory_report()}")
+    runner_cls = algorithm.EnvRunner
+    try:
+        check(info["resources"].get("GPU") == 1.0,
+              f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
+        algorithm.EnvRunner = probe_runner_class()
+        with watchdog(RL_DEADLINE_S, "the RL phase"):
+            rpc = rl_ppo_cell(torch, ca, rl, False, "rl-ppo", device)
+            rl_ppo_report("rl-ppo", rpc, card)
+            dag = rl_ppo_cell(torch, ca, rl, True, "rl-ppo-dag", device)
+            rl_ppo_report("rl-ppo-dag", dag, card)
+            a, b = rpc["first"], dag["first"]
+            check(len(a) == len(b) == RL_RUNNERS and all(
+                sorted(x) == sorted(y) and x["metrics"] == y["metrics"] and all(
+                    k == "metrics" or (x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]))
+                    for k in x) for x, y in zip(a, b)),
+                "[rl-ppo-dag] the first iteration's rollouts differ from rl-ppo's")
+            tr = dag["transport"]
+            landed = tr["cuda_landings" if device == "cuda" else "cpu_landings"]
+            check(tr["leaves_landed"] == dag["leaves"] == landed > 0
+                  and (device != "cuda" or tr["cpu_landings"] == 0),
+                  f"[rl-ppo-dag] the driver's landings {tr}, {dag['leaves']} rollout leaves")
+            log(f"[rl-ppo-dag] the first iteration's rollouts equal rl-ppo's bit for bit, "
+                f"{rl_leaf_count(a)} leaves of {RL_RUNNERS} runners; every one of the "
+                f"{dag['leaves']} rollout leaves landed on cuda in the driver, none on the CPU "
+                f"(the driver's transport counters {tr}); iteration median "
+                f"{np.median(dag['iter_ms']):.2f} ms against rl-ppo's "
+                f"{np.median(rpc['iter_ms']):.2f} ms; {card}")
+        algorithm.EnvRunner = runner_cls
+        with watchdog(RL_DEADLINE_S, "the RL phase"):
+            rl_dreamer_cell(torch, rl, card, device)
+        pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+        log(f"[rl] host memory at the session's end: {memory_report()}; the memory "
+            f"monitor's kills {state._head('stats')['stats']['oom_kills']}")
+    except BaseException:
+        print_session_errors(api._session_dir)
+        log(f"[rl] at the failure: {memory_report()}")
+        try:
+            log(f"[rl] the memory monitor's kills: {state._head('stats')['stats']['oom_kills']}")
+        except Exception as e:
+            log(f"[rl] the head's stats unreadable: {e!r}")
+        raise
+    finally:
+        algorithm.EnvRunner = runner_cls
+        ca.shutdown()
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.2)
+    check(not alive, f"processes of the RL session still alive after shutdown: {alive}")
+    launches = launch_counts(attn)
+    check(launches == (0, 0, 0), f"[rl] the flash kernels launched {launches} in this phase")
+    log(f"[rl] phase 10 in {time.perf_counter() - t_phase:.1f} s; the flash kernels' launches in "
+        f"it (fwd, dQ, dK/dV) {launches}; none of {len(pids)} processes of its session left")
 
 
 def module_origin(name):
@@ -3037,6 +3527,8 @@ def main() -> int:
     # wave replica's forward launches
     dp = phase_device_plane(torch, attn, flagship(), gen_tokens, server_tokens, compiled_sse)
     launches = (launches[0] + dp,) + launches[1:]
+    # the RL library, on a session of its own: no flash kernel on its path
+    phase_rl(torch, attn)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -91,7 +91,7 @@ class _Ent:
 
     __slots__ = (
         "holders", "released", "registered", "shm_name", "size",
-        "spill_path", "pending_free", "contains",
+        "spill_path", "pending_free", "contains", "device_holder",
     )
 
     def __init__(self):
@@ -112,6 +112,9 @@ class _Ent:
         # may never deserialize the payload — it must still be able to route
         # the release to the right ledger.
         self.contains: List[Tuple[bytes, Optional[str]]] = []
+        # a device result's holder: the process whose device_objects keeps
+        # the value, told to free it when this entry settles
+        self.device_holder: Optional[str] = None
 
 
 class OwnerLedger:
@@ -185,6 +188,17 @@ class OwnerLedger:
             if registered:
                 ent.registered = True
 
+    def set_device_holder(self, oid: bytes, holder: str) -> bool:
+        """Record the process holding this device result's value, released
+        when the entry settles.  False when it settled already (every handle
+        and borrower gone before the result came): the caller releases it."""
+        with self._lock:
+            ent = self._ents.get(oid)
+            if ent is None:
+                return False
+            ent.device_holder = holder
+            return True
+
     def set_contains(
         self, oid: bytes, refs: List[Tuple[bytes, Optional[str]]]
     ) -> Optional[List[Tuple[bytes, Optional[str]]]]:
@@ -244,6 +258,7 @@ class OwnerLedger:
             return {
                 "shm_name": ent.shm_name, "size": ent.size,
                 "spill_path": ent.spill_path, "registered": ent.registered,
+                "device_holder": ent.device_holder,
             }
 
     def __len__(self) -> int:
@@ -318,6 +333,7 @@ class OwnerLedger:
             "registered": ent.registered, "shm_name": ent.shm_name,
             "size": ent.size, "spill_path": ent.spill_path,
             "pending_free": ent.pending_free, "contains": ent.contains,
+            "device_holder": ent.device_holder,
         }
 
     def _fire(self, cleared: List[Tuple[bytes, dict]], pin_zero: List[bytes]) -> None:

@@ -1841,8 +1841,11 @@ class Worker:
         the LOCAL reclaim still completes (the acceptance property: GC does
         not need the control plane); the registry release is deferred."""
         release: List[list] = []
+        held: Dict[str, List[bytes]] = {}
         for oid, info in cleared:
             OWNER_STATS["owner_gc"] += 1
+            if info.get("device_holder"):
+                held.setdefault(info["device_holder"], []).append(oid)
             freed: List[str] = []
             for name in (info.get("shm_name"), info.get("pending_free")):
                 if name and self._is_my_slice(name):
@@ -1869,6 +1872,8 @@ class Worker:
                 )
             if info.get("registered"):
                 release.append([oid, freed])
+        for holder, oids in held.items():
+            self._release_device_objects(holder, oids)
         if not release:
             return
         head = self.head
@@ -1880,6 +1885,41 @@ class Worker:
                 pass
         OWNER_STATS["owner_gc_head_down"] += len(release)
         self._deferred_releases.extend(release)
+
+    def _note_device_holder(self, oid_b: bytes, holder: str) -> None:
+        """A device result this process owns arrived as a handle: the value
+        stays in `holder` until the ledger settles the object, which
+        releases it there (_ledger_clear); settled already, it is released
+        now.  Without a ledger (client mode, owner_plane off) the head
+        counts the borrowers, so no release is sent: the value stays until
+        its holder exits."""
+        led = self.owner_ledger
+        if led is not None and not led.set_device_holder(oid_b, holder):
+            self._release_device_objects(holder, [oid_b])
+
+    def _release_device_objects(self, holder: str, oids: List[bytes]) -> None:
+        """Tell the process holding these device results that their owner
+        dropped them (`release_device`, one-way): it pops them from its
+        device_objects.  A dead or unreachable holder makes this a no-op,
+        its objects having gone with it.  Any thread."""
+        if holder == self.serve_addr:
+            for oid in oids:
+                self.device_objects.pop(oid, None)
+            return
+
+        async def send():
+            try:
+                conn = await self.conn_to(holder)
+                conn.notify("release_device", oids=list(oids))
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                pass  # the holder is gone, and its device objects with it
+
+        try:
+            self.loop.call_soon_threadsafe(lambda: spawn_bg(send()))
+        except RuntimeError:
+            pass  # the IO loop closed: this process is shutting down
 
     def _ledger_pin_zero(self, oid: bytes) -> None:
         """Last zero-copy value pin dropped on an object this owner spilled:
@@ -3897,8 +3937,7 @@ class Worker:
                 return {"v": serialization.pack(pack_device_value(value))}
             # kept under an id no local handle counts (a put's handle would
             # be dropped, and the value evicted, before the callee fetched
-            # it): it stays until this process exits, as a device result
-            # this process returned does
+            # it): it stays until this process exits
             settle(value)
             task_id = self.current_task_id or TaskID.for_normal_task(self.job_id)
             oid = ObjectID.for_put(task_id, self._put_counter.next())
@@ -4289,6 +4328,10 @@ class Worker:
                 # holder, then drop the holds we just acquired — but ONLY for
                 # roids with no live local ref (holders is a set at the head,
                 # so a dec here would erase a legitimate concurrent hold)
+                if "dev" in res:
+                    # no local handle reads it: the ledger still counts
+                    # borrowers, or releases it now
+                    self._note_device_holder(oid.binary(), res.get("owner", exec_addr))
                 if "t" in res:
                     self._note_transit_owners(res)
                     self.transit_done(res["t"], res["roids"])
@@ -4335,8 +4378,9 @@ class Worker:
                         oid.binary(), res["shm"], res.get("size", 0)
                     )
             elif "dev" in res:
-                e = _Entry("device", value=res.get("spec"), shm_name=res.get("owner", exec_addr))
-                self.memory_store._store(oid, e)
+                holder = res.get("owner", exec_addr)
+                self.memory_store._store(oid, _Entry("device", value=res.get("spec"), shm_name=holder))
+                self._note_device_holder(oid.binary(), holder)
             if self.reference_counter.local_count(oid) == 0 and not self.reference_counter.is_owned(oid):
                 # the last handle died between the guard above and the store
                 # (eviction already ran and found nothing): drop the entry we

@@ -890,6 +890,12 @@ class WorkerProcess:
                 bool(msg.get("ttl")),
             )
             reply()
+        elif m == "release_device":
+            # the owner of these device results dropped them (its ledger
+            # settled): this holder frees them
+            for oid in msg.get("oids") or ():
+                self.worker.device_objects.pop(oid, None)
+            reply()
         elif m == "owner_transit_done":
             self.worker.serve_owner_transit_done(
                 msg["token"], msg.get("oids"), msg.get("cid", "?"),

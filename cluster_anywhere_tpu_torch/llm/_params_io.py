@@ -20,13 +20,16 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}/"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix.rstrip("/")] = tree.detach().cpu().numpy()
     else:
         out[prefix.rstrip("/")] = np.asarray(tree)
     return out
 
 
 def save_params(params: Any, path: str) -> None:
-    """params: a TransformerLM, or a param tree of arrays."""
+    """params: a TransformerLM, or a param tree of arrays or tensors (on
+    any device)."""
     if isinstance(params, torch.nn.Module):
         from ..models.convert import to_jax_params
 

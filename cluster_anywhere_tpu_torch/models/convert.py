@@ -193,3 +193,22 @@ def load_train_state(model: TransformerLM, opt: torch.optim.Optimizer, tree: Dic
                 "exp_avg": put(p, mus[p]),
                 "exp_avg_sq": put(p, nus[p]),
             }
+
+
+def rl_from_jax_params(module, tree: Dict[str, Any]):
+    """Put the JAX package's RL params (its rl/ tree of numpy arrays: a
+    module's `init(key)` or a learner's `params`) into a port RL module or
+    learner (anything with `param_tree()`, rl/module.py) in place, on its
+    device; returns it.  Both keep the [in, out] layout."""
+    from ..rl.module import load_tree
+
+    load_tree(module.param_tree(), tree)
+    return module
+
+
+def rl_to_jax_params(module) -> Dict[str, Any]:
+    """A port RL module's or learner's weights as the JAX package's rl/
+    tree of float32 numpy arrays (what its Algorithm.save writes)."""
+    from ..rl.module import to_numpy
+
+    return to_numpy(module.param_tree())

@@ -322,6 +322,15 @@ def _dev_class():
         def is_mine(self, v):
             return any(v["kv"] is k for k in self.keep)
 
+        def borrow(self, refs):
+            """Keeps the refs (a borrow): how many it holds."""
+            self.borrowed = list(refs)
+            return len(self.borrowed)
+
+        def unborrow(self):
+            self.borrowed = []
+            return 0
+
         def describe(self, v):
             """[type, is_cuda, dtype, values] of v's "kv" leaf (or of v)."""
             kv = v["kv"] if isinstance(v, dict) else v
@@ -422,8 +431,8 @@ def test_an_actors_cuda_argument_stays_in_the_actor(actors):
     own device_objects and sends a "dev" handle; the callee lands a copy
     (the driver, with no serving socket, sends an envelope instead).  The
     JAX package's worker puts it under a ref it drops at once, so the
-    callee's fetch finds nothing (ROADMAP Queue 3); the port keeps it, as
-    it keeps a device result it returned."""
+    callee's fetch finds nothing (ROADMAP Queue 3); the port keeps it until
+    the worker exits."""
     a, b = actors
     seen, before, after = ca.get(a.relay.remote(b, 3), timeout=T)
     assert seen == ["Tensor", False, "torch.bfloat16", [0.0, 1.0, 2.0]]
@@ -457,11 +466,22 @@ def test_device_ref_handle_round_trips():
     assert repr(again).startswith("DeviceRef(") and "544" in repr(again)
 
 
-def test_lifetime_of_an_actors_device_results_matches_jax(actors, jax_side):
-    """The owner of an actor's result is the driver, so only the driver's
-    eviction pops its device_objects entry: the actor keeps every device
-    result it returned after the driver dropped its refs, as in the JAX
-    package (ROADMAP Queue 3)."""
+def _settled(fn, want):
+    """fn() once it equals want, or its last value after T seconds."""
+    deadline = time.monotonic() + T
+    got = fn()
+    while got != want and time.monotonic() < deadline:
+        time.sleep(0.1)
+        got = fn()
+    return got
+
+
+def test_lifetime_of_an_actors_device_results(actors, jax_side):
+    """The owner of an actor's result is the driver: when the driver drops
+    its refs, it tells the actor holding the values, which frees them (0
+    left).  The JAX package's actor keeps every device result it returned
+    (2 left, ROADMAP Queue 3): the values and the count before the drop
+    are its."""
     holder = actors[1]
     base = ca.get(holder.count.remote(), timeout=T)
     refs = [holder.make.remote(n) for n in (4, 5)]
@@ -471,7 +491,125 @@ def test_lifetime_of_an_actors_device_results_matches_jax(actors, jax_side):
     gc.collect()
     time.sleep(1.0)
     after = ca.get(holder.count.remote(), timeout=T) - base
-    assert [got, before, after] == jax_side()["lifetime"] == [[6.0, 10.0], 2, 2]
+    assert [got, before, after] == [[6.0, 10.0], 2, 0]
+    assert jax_side()["lifetime"] == [[6.0, 10.0], 2, 2]
+
+
+def test_a_borrowed_device_ref_keeps_its_value_until_the_borrow_ends(actors):
+    """A ref another actor holds (nested in an argument: a borrow the
+    driver's ledger counts) keeps the holder's value after the driver
+    dropped its own; the borrower dropping it releases the value.  A call
+    in flight keeps its argument the same way."""
+    keeper, holder = actors
+    count = lambda: ca.get(holder.count.remote(), timeout=T)  # noqa: E731
+    base = count()
+    ref = holder.make.remote(3)
+    assert ca.wait([ref], timeout=T)[0] == [ref]
+    assert ca.get(keeper.borrow.remote([ref]), timeout=T) == 1
+    pending = keeper.describe.remote(ref)
+    del ref
+    gc.collect()
+    assert ca.get(pending, timeout=T) == ["Tensor", False, "torch.bfloat16", [0.0, 1.0, 2.0]]
+    time.sleep(1.0)
+    assert count() - base == 1  # the borrow holds it
+    assert ca.get(keeper.unborrow.remote(), timeout=T) == 0
+    gc.collect()
+    assert _settled(lambda: count() - base, 0) == 0
+
+
+NO_LEDGER = textwrap.dedent("""
+    import gc, json, time
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch.core.worker import global_worker
+
+    @ca.remote
+    class Dev:
+        def make(self, n):
+            import torch
+
+            class FakeCuda(torch.Tensor):
+                is_cuda = property(lambda self: True)
+
+            return {"kv": torch.arange(n, dtype=torch.bfloat16).as_subclass(FakeCuda)}
+
+        def count(self):
+            return len(global_worker().device_objects)
+
+        def borrow(self, refs):
+            self.borrowed = list(refs)
+            return len(self.borrowed)
+
+        def read(self, v):
+            return v["kv"].float().tolist()
+
+    ca.init(num_cpus=2, num_gpus=0)
+    try:
+        ledger = global_worker().owner_ledger is not None
+        holder, keeper = Dev.remote(), Dev.remote()
+        ref = holder.make.remote(3)
+        ca.wait([ref], timeout=60)
+        lent = ca.get(keeper.borrow.remote([ref]), timeout=60)
+        pending = keeper.read.remote(ref)
+        del ref
+        gc.collect()
+        read = ca.get(pending, timeout=60)
+        time.sleep(1.0)
+        print("RESULT " + json.dumps([ledger, lent, read, ca.get(holder.count.remote(), timeout=60)]))
+    finally:
+        ca.shutdown()
+""")
+
+
+def test_without_a_ledger_a_device_result_stays_with_its_holder():
+    """With the owner plane off the head, not the owner, counts borrowers,
+    so no release is sent: a ref another actor borrowed keeps its value
+    after the driver dropped its own, and the value stays until its holder
+    exits.  Run in a cluster of its own (CA_OWNER_PLANE=0)."""
+    env = dict(os.environ, PYTHONPATH=REPO, CA_OWNER_PLANE="0")
+    out = subprocess.run([sys.executable, "-c", NO_LEDGER], env=env, cwd="/",
+                         capture_output=True, text=True, timeout=3 * T)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("RESULT "))
+    assert json.loads(line[len("RESULT "):]) == [False, 1, [0.0, 1.0, 2.0], 1]
+
+
+def test_a_release_to_a_dead_holder_raises_nothing(cluster):
+    """The holder died before its owner dropped the ref: the release finds
+    no one, raises nothing, and the driver goes on."""
+    w = global_worker()
+    Dev = _dev_class()
+    gone = Dev.remote()
+    ref = gone.make.remote(2)
+    assert ca.wait([ref], timeout=T)[0] == [ref]
+    holder = w.memory_store.get_entry(ref.id).shm_name
+    assert w.owner_ledger.entry_info(ref.id.binary())["device_holder"] == holder
+    ca.kill(gone)
+    deadline = time.monotonic() + T
+    while _pid_of_socket_alive(holder) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    oid = ref.id.binary()
+    del ref
+    gc.collect()
+    assert _settled(lambda: w.owner_ledger.tracks(oid), False) is False
+    w._release_device_objects(holder, [oid])  # once more, directly: still nothing raised
+    other = Dev.remote()
+    assert ca.get(other.count.remote(), timeout=T) == 0
+    ca.kill(other)
+
+
+def _pid_of_socket_alive(path):
+    """Whether a process still listens on the Unix socket at path."""
+    import socket
+
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.settimeout(1.0)
+    try:
+        s.connect(path)
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
 
 
 def test_train_report_takes_device_metrics(tmp_path):

@@ -8,7 +8,7 @@ device="cpu" in the loops, the plain attention.
   tp2) writes the chunk boxes JAX writes from its virtual CPU devices; the
   8 -> 6 -> 8 reshard roundtrip of tests/test_train.py; JAX's leaf order;
 - (c) one numpy-only program under each package's DataParallelTrainer, in
-  subprocesses of their own (started when the module's cluster starts):
+  subprocesses of their own (started by the test's own fixture):
   report, keep-K, a failure retried from the checkpoint, failures
   exhausted, elastic shrink;
 - (d) the slice as a whole: TorchTrainer trains a tiny model 3 steps on
@@ -61,14 +61,20 @@ TINY = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_h
 # ---------------------------------------------------------------- (c)'s program
 
 PROGRAM = r"""
-import importlib, os, pickle, sys
+import importlib, os, pickle, signal, sys
 import numpy as np
 
 pkg, storage, out_path = sys.argv[1:4]
 ca = importlib.import_module(pkg)
 train = importlib.import_module(pkg + ".train")
 cpu = {"use_gpu": False} if pkg.endswith("_torch") else {}
-ca.init(num_cpus=4)
+
+
+def _terminated(signum, frame):
+    raise SystemExit(128 + signum)  # unwinds to the finally below: ca.shutdown()
+
+
+signal.signal(signal.SIGTERM, _terminated)
 
 
 def fit(loop, name, config=None, **kw):
@@ -115,43 +121,63 @@ def elastic(config):
                   "rank": train.get_context().get_world_rank()})
 
 
-out = {
-    "keep_k": fit(keep_k, "keepk", {}, checkpoint_config=train.CheckpointConfig(
-        num_to_keep=2, checkpoint_score_attribute="loss", checkpoint_score_order="min")),
-    "retry": fit(retry, "retry", {"marker": os.path.join(storage, "marker")},
-                 failure_config=train.FailureConfig(max_failures=1)),
-    "exhausted": fit(boom, "boom", {}, failure_config=train.FailureConfig(max_failures=1)),
-    "elastic": fit(elastic, "elastic", {}, scaling=train.ScalingConfig(
-        num_workers=8, min_workers=1, max_workers=8, **cpu)),
-}
-with open(out_path, "wb") as f:
-    pickle.dump(out, f)
-ca.shutdown()
+try:
+    ca.init(num_cpus=4)
+    out = {
+        "keep_k": fit(keep_k, "keepk", {}, checkpoint_config=train.CheckpointConfig(
+            num_to_keep=2, checkpoint_score_attribute="loss", checkpoint_score_order="min")),
+        "retry": fit(retry, "retry", {"marker": os.path.join(storage, "marker")},
+                     failure_config=train.FailureConfig(max_failures=1)),
+        "exhausted": fit(boom, "boom", {}, failure_config=train.FailureConfig(max_failures=1)),
+        "elastic": fit(elastic, "elastic", {}, scaling=train.ScalingConfig(
+            num_workers=8, min_workers=1, max_workers=8, **cpu)),
+    }
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+finally:
+    ca.shutdown()
 """
+SHUTDOWN_WAIT = 30  # seconds a program has for its ca.shutdown() after SIGTERM
 
 
 @pytest.fixture(scope="module", autouse=True)
-def cluster(tmp_path_factory):
-    """The port's cluster for this file (no GPU), and (c)'s two programs,
-    started beside it."""
-    d = tmp_path_factory.mktemp("train_programs")
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    procs = {}
-    for pkg in ("cluster_anywhere_tpu", "cluster_anywhere_tpu_torch"):
-        os.makedirs(d / f"{pkg}_storage")
-        procs[pkg] = subprocess.Popen(
-            [sys.executable, "-c", PROGRAM, pkg, str(d / f"{pkg}_storage"), str(d / pkg)],
-            env=env, cwd="/", stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+def cluster():
+    """The port's cluster for this file (no GPU)."""
     if ca.is_initialized():
         ca.shutdown()
     info = ca.init(num_cpus=4, num_gpus=0)
     try:
-        yield {"info": info, "procs": procs, "dir": d}
+        yield {"info": info}
     finally:
         ca.shutdown()
+
+
+@pytest.fixture
+def programs(tmp_path):
+    """(c)'s two programs, one under each package.  At teardown a program
+    still running gets SIGTERM, which it answers with ca.shutdown(), and
+    is killed only after SHUTDOWN_WAIT seconds: however the file is
+    filtered, no session of theirs outlives the run."""
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    procs = {}
+    try:
+        for pkg in ("cluster_anywhere_tpu", "cluster_anywhere_tpu_torch"):
+            os.makedirs(tmp_path / f"{pkg}_storage")
+            procs[pkg] = subprocess.Popen(
+                [sys.executable, "-c", PROGRAM, pkg, str(tmp_path / f"{pkg}_storage"),
+                 str(tmp_path / pkg)],
+                env=env, cwd="/", stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        yield {"procs": procs, "dir": tmp_path}
+    finally:
         for p in procs.values():
             if p.poll() is None:
+                p.terminate()
+        for p in procs.values():
+            try:
+                p.communicate(timeout=SHUTDOWN_WAIT)
+            except subprocess.TimeoutExpired:
                 p.kill()
+                p.communicate(timeout=SHUTDOWN_WAIT)
 
 
 # ------------------------------------------------------------------------ (a)
@@ -585,18 +611,14 @@ def test_sharded_checkpoint_resumes_on_another_world(tmp_path):
 
 # ------------------------------------------------------------------------ (c)
 
-def test_trainer_program_gives_the_jax_packages_results(cluster):
+def test_trainer_program_gives_the_jax_packages_results(programs):
     """The same numpy-only program under both packages' DataParallelTrainer:
     equal Result.metrics, metrics history, kept checkpoints and restart."""
     out = {}
-    for pkg, p in cluster["procs"].items():
-        try:
-            _, err = p.communicate(timeout=T)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            raise
+    for pkg, p in programs["procs"].items():
+        _, err = p.communicate(timeout=T)
         assert p.returncode == 0, (pkg, err[-3000:])
-        with open(cluster["dir"] / pkg, "rb") as f:
+        with open(programs["dir"] / pkg, "rb") as f:
             out[pkg] = pickle.load(f)
     jax_out, port = out["cluster_anywhere_tpu"], out["cluster_anywhere_tpu_torch"]
     assert port == jax_out
