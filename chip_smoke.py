@@ -134,6 +134,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      rollout leaf must land on cuda in the driver; and rl-dreamer,
      train_dreamer on CartPole at tests/test_rl.py's DreamerConfig for 22
      episodes, its world-model and actor-critic update ms.
+  11. Tune and Workflows (cluster_anywhere_tpu_torch.tune, .workflow), on a
+     session of the port's runtime of their own: tune-asha, a Tuner over 4
+     learning rates (the train cell's among them) with ASHA (max_t 12,
+     grace 3, reduction 2), 4 trial actors at 0.25 GPU at once, each
+     training the flagship from seed 0 on the train cell's batch (the
+     configs the generator's own, a trial stopped before step 12, step 1's
+     loss at the train cell's rate to 1e-6 of phase 5's, every step
+     launching all three kernels inside its trial); tune-pbt, 2 trials at
+     0.5 GPU under PopulationBasedTraining (interval 4, 8 steps), the
+     trailing trial exploiting the leader's checkpoint of params and AdamW
+     state (its restored params sha256-equal to the source checkpoint's,
+     the loss falling); workflow-gpu, a num_gpus=1 step running the
+     generate cell (its tokens equal to phase 3's or a near-tie) and a CPU
+     step failing once, which workflow.resume finishes without running
+     the GPU step again.  Under one watchdog; the driver launches nothing.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
@@ -141,7 +156,8 @@ kernel; the HTTP and processor cells launch nothing in the driver.
 Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
 replica's, the processor actor's, the parallel ranks', the Train
-workers', the Prefiller's and the RPC wave replica's included), the
+workers', the Prefiller's, the RPC wave replica's, the Tune trials' and
+the workflow step's included), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -161,6 +177,8 @@ import numpy as np
 
 B, T, N_NEW = 8, 512, 32  # serving: prompts, prompt length, new tokens
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 1024, 10  # bench.py's training batch
+TRAIN_LR = 3e-4  # make_train_step's default rate: the train cell's
+STEP1_LOSS = {}  # each training cell's step-1 loss, by its tag (phase 11 reads "train")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -1523,6 +1541,7 @@ def train_cell(torch, attn, cfg, tag="train"):
         f"{sorted(set(per_step))}")
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall from step 1 to step {len(losses)}: {losses}")
+    STEP1_LOSS[tag] = losses[0]
     check(all(c == want for c in per_step),
           f"a training step launched (fwd, dQ, dK/dV) {per_step}, want {want} each")
     # the serving copy (cast here, after the peak memory is read) follows
@@ -1670,6 +1689,7 @@ def compare_train_with_plain_attention(torch, attn, cfg, tag="train"):
 
 PAR_WORLD = 4
 PAR_TIMED = 3  # steps timed after the first (warm-up and compared) step
+PAR_LAYERS = 4  # the flagship's depth cut from 8, the widths kept: the script's time limit
 PAR_CELLS = (  # (name, config overrides, mesh axes, B, T, reference)
     ("par-A-pp2-tp2", dict(pp=2, num_microbatches=2), dict(pp=2, tp=2), 8, 1024, "dense"),
     ("par-B-ring-sp2-tp2", dict(sp=2, attn_impl="ring"), dict(sp=2, tp=2), 4, 2048, "dense-2048"),
@@ -1691,8 +1711,10 @@ PAR_TOL = {"loss_rel": 1e-3, "grad_rel_l2": 5e-2}  # phase 5's gradient bound
 
 
 def par_base_cfg(ref):
-    return (dataclasses.replace(moe_flagship(), capacity_factor=PAR_CAPACITY) if ref == "moe"
-            else flagship())
+    if ref == "moe":
+        return dataclasses.replace(moe_flagship(), capacity_factor=PAR_CAPACITY,
+                                   n_layers=PAR_LAYERS)
+    return dataclasses.replace(flagship(), n_layers=PAR_LAYERS)
 
 
 def par_batch(torch, cfg, b, t):
@@ -2403,6 +2425,7 @@ def phase_train_lib(torch, attn, ref):
             driver = launch_counts(attn)
             host_probe_report(*host_group_probe("cuda"))
         pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+        log(f"[train-lib] {heartbeat_report(api._session_dir)}")
     except BaseException:
         print_session_errors(api._session_dir)
         raise
@@ -2423,9 +2446,13 @@ def phase_train_lib(torch, attn, ref):
 
 
 def print_session_errors(session_dir, lines=40):
-    """To stderr: each session log's lines from its first traceback or
-    error on (what a worker that died said before it went)."""
+    """To stderr: the causes of the workers the head declared dead, and
+    each session log's lines from its first traceback or error on (what a
+    worker that died said before it went)."""
     import glob
+
+    for wid, cause in worker_deaths(session_dir):
+        print(f"--- the head declared worker {wid} dead: {cause}", file=sys.stderr)
 
     for path in sorted(glob.glob(os.path.join(session_dir or "", "*.log"))):
         with open(path, errors="replace") as f:
@@ -2940,6 +2967,7 @@ def phase_device_plane(torch, attn, cfg, gen_tokens, server_tokens, compiled_sse
             check(rpc_launches >= cfg.n_layers,
                   f"[serve-rpc] the replica launched flash_fwd {rpc_launches} times")
         pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+        log(f"[device-plane] {heartbeat_report(api._session_dir)}")
     except BaseException:
         print_session_errors(api._session_dir)
         raise
@@ -3394,6 +3422,7 @@ def phase_rl(torch, attn, device="cuda"):
         with watchdog(RL_DEADLINE_S, "the RL phase"):
             rl_dreamer_cell(torch, rl, card, device)
         pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+        log(f"[rl] {heartbeat_report(api._session_dir)}")
         log(f"[rl] host memory at the session's end: {memory_report()}; the memory "
             f"monitor's kills {state._head('stats')['stats']['oom_kills']}")
     except BaseException:
@@ -3417,6 +3446,523 @@ def phase_rl(torch, attn, device="cuda"):
     check(launches == (0, 0, 0), f"[rl] the flash kernels launched {launches} in this phase")
     log(f"[rl] phase 10 in {time.perf_counter() - t_phase:.1f} s; the flash kernels' launches in "
         f"it (fwd, dQ, dK/dV) {launches}; none of {len(pids)} processes of its session left")
+
+
+# ----------------------------------------------------------------- phase 11
+# Tune and Workflows, on a session of the port's runtime of their own: an
+# ASHA search over the flagship's learning rate in GPU trial actors
+# (tune-asha), PBT exploiting a checkpoint of params and AdamW state
+# (tune-pbt), and a workflow whose GPU step survives a resume
+# (workflow-gpu).  The trials and the step count the kernels' launches in
+# their own processes; the driver's counts stay 0.
+
+TW_DEADLINE_S = 600  # the whole phase, under one watchdog
+TW_LRS = (1e-3, TRAIN_LR, 1e-4, 3e-5)  # started in this order: the likely best reaches a rung first
+TW_ASHA = dict(max_t=12, grace_period=3, reduction_factor=2)
+TW_ASHA_GPU, TW_PBT_GPU = 0.25, 0.5  # each trial's share of the card
+TW_PBT_STEPS, TW_PBT_INTERVAL = 8, 4
+TW_PBT_LRS = (1e-3, 1e-5)  # the leader first; the other exploits it at step 4
+TW_PBT_MUTATIONS = (5e-4, 2e-3)
+TW_TOL = {"step1_rel": 1e-6}
+
+
+def tune_workflow_functions():
+    """(asha trial, pbt trial, generate step, failing step), nested so that
+    they travel to the actors and tasks by value.  Each trial step reports
+    its loss, ms, the flash kernels' launches counted in its own process
+    and the card's peak memory_allocated there."""
+
+    def launches():
+        import importlib
+
+        attn = importlib.import_module("cluster_anywhere_tpu_torch.ops.attention")
+        return (attn.flash_attention.launches, attn.flash_bwd_dq.launches,
+                attn.flash_bwd_dkv.launches)
+
+    def setup(config):
+        """make_train_step at the trial's rate, the model from seed 0 and
+        the train cell's fixed batch, as phase 5 builds them."""
+        import numpy as np
+        import torch
+
+        from cluster_anywhere_tpu_torch.models import TransformerConfig, make_train_step
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg, dev = TransformerConfig(**config["cfg"]), config["device"]
+        step, init_state = make_train_step(cfg, learning_rate=config["lr"], device=dev)
+        model, opt = init_state(0)
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (config["b"], config["t"] + 1))
+        return step, model, opt, {"ids": torch.from_numpy(ids).to(dev)}
+
+    def one_step(step, model, opt, batch, s):
+        import time
+
+        import torch
+
+        before = launches()
+        t0 = time.perf_counter()
+        _, _, loss = step(model, opt, batch)
+        loss = loss.item()  # ends in a synchronize
+        cuda = batch["ids"].is_cuda
+        return {"step": s, "loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                "launches": [a - b for a, b in zip(launches(), before)],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+                "t_report": time.time()}
+
+    def asha(config):
+        import time
+
+        from cluster_anywhere_tpu_torch import tune
+
+        t0 = time.time()
+        step, model, opt, batch = setup(config)
+        build_s = time.time() - t0
+        for s in range(1, config["steps"] + 1):
+            tune.report(dict(one_step(step, model, opt, batch, s), build_s=build_s))
+
+    def pbt(config):
+        import hashlib
+        import os
+        import shutil
+        import time
+
+        from cluster_anywhere_tpu_torch import tune
+        from cluster_anywhere_tpu_torch.models import load_train_state, train_state
+        from cluster_anywhere_tpu_torch.train.checkpoint import tree_flatten
+
+        step, model, opt, batch = setup(config)
+        start, extra = 0, {}
+        ck = tune.get_checkpoint()
+        if ck is not None:
+            t0 = time.perf_counter()
+            tree = ck.load_pytree()
+            load_train_state(model, opt, tree)
+            start = int(tree["opt"]["count"])
+            load_ms = (time.perf_counter() - t0) * 1e3
+            h = hashlib.sha256()
+            for leaf in tree_flatten(train_state(model, opt)["params"])[0]:
+                h.update(leaf.detach().cpu().numpy().tobytes())
+            extra = {"restored_from": ck.path, "restored_sha256": h.hexdigest(),
+                     "load_ms": load_ms}
+        for s in range(start + 1, config["steps"] + 1):
+            metrics = dict(one_step(step, model, opt, batch, s), lr=config["lr"], **extra)
+            extra = {}
+            if s == config["steps"]:
+                return metrics  # the final result: no perturbation follows it
+            ckpt = None
+            if s % config["interval"] == 0:
+                if config["lr"] == config["leader"]:
+                    # the one checkpoint an exploit restores: the leader's
+                    ckpt = tune.Checkpoint(tune.make_temp_checkpoint_dir())
+                    t0 = time.perf_counter()
+                    ckpt.save_pytree(train_state(model, opt))
+                    metrics["save_ms"] = (time.perf_counter() - t0) * 1e3
+                    metrics["save_bytes"] = os.path.getsize(os.path.join(ckpt.path, "state.npz"))
+                else:
+                    # report a second after the leader did, so that this
+                    # trial's exploit finds the leader's checkpoint of this
+                    # step on record
+                    lead = os.path.join(config["sync"], f"{s}_{config['leader']!r}")
+                    deadline = time.monotonic() + 300
+                    while not os.path.exists(lead):
+                        if time.monotonic() > deadline:
+                            raise TimeoutError(f"the leader never reported step {s}")
+                        time.sleep(0.05)
+                    time.sleep(1.0)
+            tune.report(metrics, checkpoint=ckpt)
+            if ckpt is not None:
+                shutil.rmtree(ckpt.path)
+                open(os.path.join(config["sync"], f"{s}_{config['lr']!r}"), "w").close()
+
+    def generate_step(cfg, ids, lens, n_new, device, marker):
+        """The workflow's GPU step: the generate cell on the flagship from
+        seed 0; counts its runs in `marker`."""
+        import importlib
+        import time
+
+        import torch
+
+        from cluster_anywhere_tpu_torch.models.generate import generate
+        from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+        with open(marker, "a") as f:
+            f.write("x")
+        attn = importlib.import_module("cluster_anywhere_tpu_torch.ops.attention")
+        model = init_params(cfg, 0, device=device)
+        before = attn.flash_attention.launches
+        t0 = time.perf_counter()
+        out = generate(model, torch.tensor(ids, device=device), cfg=cfg, max_new_tokens=n_new,
+                       prompt_lens=torch.tensor(lens, device=device))
+        tokens = out.cpu().numpy()
+        return {"tokens": tokens, "launches": attn.flash_attention.launches - before,
+                "ms": (time.perf_counter() - t0) * 1e3}
+
+    def fail_once(out, marker):
+        """The workflow's CPU step: fails on its first run."""
+        import os
+
+        if not os.path.exists(marker):
+            open(marker, "w").close()
+            raise RuntimeError("injected failure of the CPU step")
+        return {"rows": int(out["tokens"].shape[0]), "launches": out["launches"]}
+
+    return asha, pbt, generate_step, fail_once
+
+
+def cfg_fields(cfg):
+    """A model config's fields as builtins, its dtypes by name: a trial
+    actor then unpickles its arguments without importing torch, which it
+    does on its trainable's thread instead, while the controller, which
+    creates the trial actors one after another, goes on to the next."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for k in ("dtype", "param_dtype"):
+        out[k] = str(out[k]).replace("torch.", "")
+    return out
+
+
+def tw_asha(cfg, device, b, t, storage):
+    """The tune-asha cell: returns what the checks and logs need."""
+    from cluster_anywhere_tpu_torch import tune
+
+    asha, _, _, _ = tune_workflow_functions()
+
+    class Starts(tune.Callback):
+        """When each trial's actor was first asked for (the controller's
+        on_trial_start, on the driver's clock)."""
+
+        def __init__(self):
+            self.at = {}
+
+        def on_trial_start(self, trial):
+            self.at.setdefault(trial.trial_id, time.time())
+
+    starts = Starts()
+    space = {"lr": tune.grid_search(list(TW_LRS)), "cfg": cfg_fields(cfg), "device": device,
+             "b": b, "t": t, "steps": TW_ASHA["max_t"]}
+    res = {"gpu": TW_ASHA_GPU} if device != "cpu" else {"cpu": 1}
+    t_fit, t0 = time.time(), time.perf_counter()
+    grid = tune.Tuner(
+        tune.with_resources(asha, res), param_space=space,
+        tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=len(TW_LRS),
+                                    scheduler=tune.ASHAScheduler(**TW_ASHA)),
+        run_config=tune.RunConfig(name="tune-asha", storage_path=storage, callbacks=[starts]),
+    ).fit()
+    wall = time.perf_counter() - t0
+    bv = tune.BasicVariantGenerator()
+    bv.set_search_properties("loss", "min", space)
+    want = [c["lr"] for c in iter(lambda: bv.suggest("t"), None)]
+    return {"grid": grid, "wall": wall, "starts": starts.at, "want": want, "t_fit": t_fit}
+
+
+def tw_pbt(cfg, device, b, t, storage):
+    """The tune-pbt cell: returns what the checks and logs need."""
+    from cluster_anywhere_tpu_torch import tune
+
+    _, pbt, _, _ = tune_workflow_functions()
+    sync = os.path.join(storage, "pbt-sync")
+    os.makedirs(sync)
+    space = {"lr": tune.grid_search(list(TW_PBT_LRS)), "leader": TW_PBT_LRS[0], "cfg": cfg_fields(cfg),
+             "device": device, "b": b, "t": t, "steps": TW_PBT_STEPS,
+             "interval": TW_PBT_INTERVAL, "sync": sync}
+    res = {"gpu": TW_PBT_GPU} if device != "cpu" else {"cpu": 1}
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        tune.with_resources(pbt, res), param_space=space,
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=len(TW_PBT_LRS),
+            scheduler=tune.PopulationBasedTraining(
+                perturbation_interval=TW_PBT_INTERVAL, seed=0,
+                hyperparam_mutations={"lr": list(TW_PBT_MUTATIONS)})),
+        run_config=tune.RunConfig(name="tune-pbt", storage_path=storage),
+    ).fit()
+    return {"grid": grid, "wall": time.perf_counter() - t0}
+
+
+def tw_workflow(torch, ca, cfg, device, storage):
+    """The workflow-gpu cell: the generate step on the card, then a CPU
+    step that fails once; resume finishes it from the stored step 1."""
+    from cluster_anywhere_tpu_torch import workflow
+    from cluster_anywhere_tpu_torch.workflow.storage import WorkflowStorage
+
+    _, _, generate_step, fail_once = tune_workflow_functions()
+    gpu = {"num_gpus": 1} if device != "cpu" else {"num_cpus": 1}
+    gen = ca.remote(**gpu)(generate_step)
+    cpu_step = ca.remote(num_cpus=1)(fail_once)
+    ids, lens = generate_prompts(torch, cfg, 0, "cpu")
+    runs, failed = os.path.join(storage, "wf-gpu-runs"), os.path.join(storage, "wf-gpu-failed")
+    dag = cpu_step.bind(gen.bind(cfg, ids.numpy(), lens.numpy(), N_NEW, device, runs), failed)
+    root = os.path.join(storage, "workflows")
+    t0 = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="wf-gpu", storage_root=root, max_step_retries=0)
+        first_error = None
+    except Exception as e:  # the CPU step's injected failure
+        first_error = e
+    wall = time.perf_counter() - t0
+    status = workflow.get_status("wf-gpu", storage_root=root)
+    t0 = time.perf_counter()
+    out = workflow.resume("wf-gpu", storage_root=root)
+    resume_s = time.perf_counter() - t0
+    st = WorkflowStorage("wf-gpu", root)
+    stored = [st.load_step(k) for k in st.completed_steps() if k.startswith("step_")]
+    step1 = next(v for v in stored if isinstance(v, dict) and "tokens" in v)
+    with open(runs) as f:
+        n_runs = len(f.read())
+    return {"first_error": first_error, "failed_status": status, "out": out, "step1": step1,
+            "runs": n_runs, "wall": wall, "resume_s": resume_s,
+            "status": workflow.get_status("wf-gpu", storage_root=root)}
+
+
+def tw_report_asha(asha, ref, card, steps_want):
+    """Checks and logs of tune-asha; returns the trials' launches."""
+    grid = asha["grid"]
+    check(grid.num_errors == 0, f"[tune-asha] trials failed: {grid.errors}")
+    lrs = [r.config["lr"] for r in grid]
+    check(lrs == asha["want"] == list(TW_LRS),
+          f"[tune-asha] trial rates {lrs}, the generator's sequence {asha['want']}")
+    hist = [r.metrics_history for r in grid]
+    ran = [len(h) for h in hist]
+    check(min(ran) < TW_ASHA["max_t"] and max(ran) == TW_ASHA["max_t"],
+          f"[tune-asha] steps per trial {ran}: want at least one stopped before step "
+          f"{TW_ASHA['max_t']} and one to reach it")
+    for lr, h in zip(lrs, hist):
+        check([m["step"] for m in h] == list(range(1, len(h) + 1)),
+              f"[tune-asha] lr {lr:g} reported steps {[m['step'] for m in h]}")
+        check(all(tuple(m["launches"]) == steps_want for m in h),
+              f"[tune-asha] lr {lr:g}: a step launched {[m['launches'] for m in h]}, want "
+              f"{steps_want} each")
+    mine = hist[lrs.index(TRAIN_LR)][0]["loss"]
+    rel = abs(mine - ref["train_loss1"]) / abs(ref["train_loss1"])
+    startup = [h[0]["t_report"] - asha["starts"][r.metrics["trial_id"]] for r, h in zip(grid, hist)]
+    step_ms = [float(np.median([m["step_ms"] for m in h[1:]])) for h in hist]
+    peaks = [max(m["peak_gb"] for m in h) for h in hist]
+    when = [(asha["starts"][r.metrics["trial_id"]] - asha["t_fit"], h[0]["t_report"] - asha["t_fit"],
+             h[-1]["t_report"] - asha["t_fit"]) for r, h in zip(grid, hist)]
+    launches = tuple(map(sum, zip(*(m["launches"] for h in hist for m in h))))
+    log(f"[tune-asha] Tuner(with_resources(trainable, {{'gpu': {TW_ASHA_GPU}}})), ASHA "
+        f"{TW_ASHA}, {len(TW_LRS)} trials at once sharing the card, the flagship from seed 0 on "
+        f"the train cell's batch B{ref['b']} T{ref['t']}: rates {lrs} ran {ran} steps; trial "
+        f"start-up (placed to first report) {', '.join(f'{x:.2f}' for x in startup)} s; ms a step "
+        f"in a trial (median of steps 2 on) {', '.join(f'{x:.1f}' for x in step_ms)} against the "
+        f"train cell's {ref['train_ms']:.2f} alone on the card ({len(TW_LRS)} trials share it: "
+        f"not a scaling number); experiment wall {asha['wall']:.2f} s (each trial's actor ready, "
+        f"first and last report, s after fit() began: "
+        f"{'; '.join(', '.join(f'{x:.2f}' for x in w) for w in when)}); peak memory_allocated a "
+        f"trial {', '.join(f'{x:.2f}' for x in peaks)} GB; step 1's loss at lr {TRAIN_LR:g} "
+        f"{mine:.6f} vs the train cell's {ref['train_loss1']:.6f} (relative {rel:.3g}, limit "
+        f"{TW_TOL['step1_rel']:g}); the trials' launches (fwd, dQ, dK/dV) {launches}; {card}")
+    check(rel <= TW_TOL["step1_rel"], "[tune-asha] step 1's loss is off the train cell's")
+    return launches
+
+
+def tw_report_pbt(pbt, steps_want, card):
+    """Checks and logs of tune-pbt; returns the trials' launches."""
+    from cluster_anywhere_tpu_torch import train
+
+    grid = pbt["grid"]
+    check(grid.num_errors == 0, f"[tune-pbt] trials failed: {grid.errors}")
+    hist = [r.metrics_history for r in grid]
+    restored = [m for h in hist for m in h if "restored_sha256" in m]
+    check(len(restored) >= 1, "[tune-pbt] no trial exploited another's checkpoint")
+    for h in hist:
+        # a trial may report a step or two more before its exploit lands;
+        # from the restored step on it counts up to the last
+        steps = [m["step"] for m in h]
+        at = max([i for i, m in enumerate(h) if "restored_sha256" in m], default=0)
+        check(steps[:TW_PBT_INTERVAL] == list(range(1, TW_PBT_INTERVAL + 1))
+              and steps[at:] == list(range(steps[at], TW_PBT_STEPS + 1))
+              and (at == 0 or steps[at] == TW_PBT_INTERVAL + 1),
+              f"[tune-pbt] steps {[[m['step'] for m in h] for h in hist]}")
+    import hashlib
+
+    from cluster_anywhere_tpu_torch.train.checkpoint import tree_flatten
+
+    digests = []
+    for m in restored:
+        src = train.Checkpoint(m["restored_from"]).load_pytree()
+        h = hashlib.sha256()
+        for leaf in tree_flatten(src["params"])[0]:
+            h.update(leaf.tobytes())
+        digests.append(h.hexdigest())
+        check(h.hexdigest() == m["restored_sha256"],
+              f"[tune-pbt] the params restored at step {m['step']} differ from their source "
+              f"checkpoint {m['restored_from']}")
+    for h in hist:
+        losses = [m["loss"] for m in h]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[TW_PBT_INTERVAL - 1] < losses[0],
+              f"[tune-pbt] the loss did not keep falling: {losses}")
+    saves = [(m["save_ms"], m["save_bytes"]) for h in hist for m in h if "save_ms" in m]
+    loads = [m["load_ms"] for m in restored]
+    launches = tuple(map(sum, zip(*(m["launches"] for h in hist for m in h))))
+    check(all(tuple(m["launches"]) == steps_want for h in hist for m in h),
+          f"[tune-pbt] a step launched {[[m['launches'] for m in h] for h in hist]}")
+    log(f"[tune-pbt] PopulationBasedTraining(perturbation_interval={TW_PBT_INTERVAL}), 2 trials "
+        f"at {TW_PBT_GPU} GPU, rates {[r.config['lr'] for r in grid]} (started at "
+        f"{list(TW_PBT_LRS)}), {TW_PBT_STEPS} steps: {len(restored)} exploit(s), restored params "
+        f"sha256 {', '.join(d[:16] for d in digests)} equal to their source checkpoints'; loss "
+        + "; ".join(' '.join(f"{m['loss']:.4f}" for m in h) for h in hist)
+        + f"; save_pytree of params and AdamW state "
+        + ", ".join(f"{ms:.0f} ms for {n / 1e9:.3f} GB" for ms, n in saves)
+        + f"; load_pytree + load_train_state {', '.join(f'{x:.0f}' for x in loads)} ms; "
+          f"experiment wall {pbt['wall']:.2f} s; the trials' launches {launches}; {card}")
+    return launches
+
+
+def tw_report_workflow(torch, wf, cfg, gen_tokens, device, card, per_layer):
+    """Checks and logs of workflow-gpu; returns the step's forward launches."""
+    step1 = wf["step1"]
+    check(wf["first_error"] is not None and wf["failed_status"] == "FAILED",
+          f"[workflow-gpu] the first run ended {wf['failed_status']} ({wf['first_error']!r}), "
+          f"want FAILED on the CPU step's injected failure")
+    check(wf["status"] == "SUCCEEDED" and wf["out"] == {"rows": B, "launches": step1["launches"]},
+          f"[workflow-gpu] the resumed run gave {wf['out']} ({wf['status']})")
+    check(wf["runs"] == 1, f"[workflow-gpu] the GPU step ran {wf['runs']} times, want once")
+    check(step1["launches"] == per_layer,
+          f"[workflow-gpu] the GPU step launched flash_fwd {step1['launches']} times")
+    tokens = step1["tokens"]
+    check(tokens.shape == (B, N_NEW), f"[workflow-gpu] tokens {tokens.shape}")
+    differing = 0
+    if not np.array_equal(tokens, gen_tokens):
+        from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+        model = init_params(cfg, 0, device=device)
+        ids, lens = generate_prompts(torch, cfg, 0, device)
+        differing = near_tie_rows(torch, model, cfg, ids, lens, gen_tokens, tokens, "GPU step",
+                                  "workflow-gpu")
+        del model
+    log(f"[workflow-gpu] a two-step workflow: the generate cell's 8 prompts +{N_NEW} on the "
+        f"flagship in a num_gpus=1 task ({step1['ms']:.1f} ms of generate, {step1['launches']} "
+        f"flash_fwd launches inside it), then a CPU task failing once: first run {wf['wall']:.2f} s "
+        f"(FAILED), resume {wf['resume_s']:.3f} s from the stored step 1 (the GPU step ran "
+        f"{wf['runs']} time in all, no new launch); tokens equal to the generate cell's on "
+        f"{B - differing} of {B} rows, the rest near-ties; {card}")
+    return step1["launches"]
+
+
+def heartbeat_report(session_dir):
+    """The head's widest heartbeat silence from a live worker this session
+    (and whose), the silences past the bound it let pass because the
+    worker's process was working, and the causes of the workers it
+    declared dead (events.jsonl)."""
+    from cluster_anywhere_tpu_torch.util import state
+
+    try:
+        st = state._head("stats")["stats"]
+        gap = (f"{st.get('max_heartbeat_gap_s', 0.0):.2f} s "
+               f"({st.get('max_heartbeat_gap_worker')})")
+    except Exception as e:
+        gap = f"unreadable ({e!r})"
+    return (f"the widest heartbeat gap {gap}; silences past the bound with the worker at work "
+            f"{session_events(session_dir, 'worker_silent', 'state', 'proc_state')}; workers "
+            f"declared dead {worker_deaths(session_dir)}")
+
+
+def session_events(session_dir, kind, *keys):
+    """[(worker, *keys)] of the session's events of one kind."""
+    out = []
+    try:
+        with open(os.path.join(session_dir or "", "events.jsonl")) as f:
+            for line in f:
+                ev = json.loads(line)
+                if ev.get("event") == kind:
+                    out.append((ev.get("worker_id"),) + tuple(ev.get(k) for k in keys))
+    except (OSError, ValueError):
+        pass
+    return out
+
+
+def worker_deaths(session_dir):
+    """[(worker, cause)] of the session's worker_died events."""
+    return session_events(session_dir, "worker_died", "cause")
+
+
+def phase_tune_workflow(torch, attn, ref, device="cuda", cfg=None, b=TRAIN_B, t=TRAIN_T):
+    """Phase 11, Tune and Workflows on a session of the port's runtime of
+    their own: tune-asha, tune-pbt and workflow-gpu, each checked and
+    logged as it ends, under one watchdog; no process of the session left
+    after shutdown.  `ref` holds phase 5's step-1 loss and step ms and the
+    generate cell's tokens.  device="cpu" with a small cfg rehearses it on
+    the host.  Returns the launches in the trials and the step (fwd, dQ,
+    dK/dV); the driver's must stay 0."""
+    import shutil
+
+    import cluster_anywhere_tpu_torch as ca
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.util import state
+
+    cfg = cfg or flagship()
+    card = gpu_clocks("name,power.limit") if device == "cuda" else "cpu"
+    # on the host the wrappers take the plain versions: no launch to count
+    per_layer = cfg.n_layers if device == "cuda" else 0
+    steps_want = (per_layer,) * 3
+    if ref is None:
+        ref = tw_host_reference(torch, cfg, b, t)
+    ref = dict(ref, b=b, t=t)
+    storage = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tune_workflow")
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+    import gc
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        log(f"[tune] the driver's memory_allocated at the phase's start "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t_phase = time.perf_counter()
+    zero_launch_counts(attn)
+    info = ca.init(num_cpus=6, **({} if device == "cuda" else {"num_gpus": 0}))
+    try:
+        if device == "cuda":
+            check(info["resources"].get("GPU") == 1.0,
+                  f"the runtime detected {info['resources'].get('GPU')} GPUs, want 1")
+        with watchdog(TW_DEADLINE_S, "the Tune and Workflows phase"):
+            launches = tw_report_asha(tw_asha(cfg, device, b, t, storage), ref, card, steps_want)
+            pbt = tw_report_pbt(tw_pbt(cfg, device, b, t, storage), steps_want, card)
+            launches = tuple(a + b_ for a, b_ in zip(launches, pbt))
+            wf = tw_report_workflow(torch, tw_workflow(torch, ca, cfg, device, storage), cfg,
+                                    ref["gen_tokens"], device, card, per_layer)
+            launches = (launches[0] + wf,) + launches[1:]
+        pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
+        log(f"[tune] {heartbeat_report(api._session_dir)}")
+    except BaseException:
+        print_session_errors(api._session_dir)
+        raise
+    finally:
+        ca.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.2)
+    check(not alive, f"processes of the Tune session still alive after shutdown: {alive}")
+    driver = launch_counts(attn)
+    log(f"[tune] phase 11 in {time.perf_counter() - t_phase:.1f} s; launches (fwd, dQ, dK/dV) in "
+        f"the trials and the workflow's step {launches}, in the driver {driver}")
+    check(driver == (0, 0, 0), f"the driver launched kernels in phase 11: {driver}")
+    check(device != "cuda" or all(x > 0 for x in launches),
+          f"a kernel did not launch in phase 11: {launches}")
+    return launches
+
+
+def tw_host_reference(torch, cfg, b, t):
+    """What phases 3 and 5 give phase 11, computed here on the host for a
+    rehearsal: step 1's loss and ms of the train cell's step, and the
+    generate cell's tokens."""
+    from cluster_anywhere_tpu_torch.models import make_train_step
+    from cluster_anywhere_tpu_torch.models.generate import generate
+    from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+    step, init_state = make_train_step(cfg, device="cpu")
+    model, opt = init_state(0)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, t + 1))
+    t0 = time.perf_counter()
+    _, _, loss = step(model, opt, {"ids": torch.from_numpy(ids)})
+    train_ms = (time.perf_counter() - t0) * 1e3
+    ids_t, lens_t = generate_prompts(torch, cfg, 0, "cpu")
+    out = generate(init_params(cfg, 0, device="cpu"), ids_t, cfg=cfg, max_new_tokens=N_NEW,
+                   prompt_lens=lens_t)
+    return {"train_loss1": loss.item(), "train_ms": train_ms, "gen_tokens": out.numpy()}
 
 
 def module_origin(name):
@@ -3529,6 +4075,11 @@ def main() -> int:
     launches = (launches[0] + dp,) + launches[1:]
     # the RL library, on a session of its own: no flash kernel on its path
     phase_rl(torch, attn)
+    # Tune and Workflows, on a session of their own: the trials' and the
+    # workflow step's launches
+    tw = phase_tune_workflow(torch, attn, {"train_loss1": STEP1_LOSS["train"],
+                                           "train_ms": train_ms, "gen_tokens": gen_tokens})
+    launches = tuple(map(sum, zip(launches, tw)))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -59,6 +59,18 @@ LOCAL_NODE = "n0"
 # every bundle-charging / policy invariant stays in one place.
 LEASE_UNIT_SHAPES = {"cpu": {"CPU": 1.0}}
 
+# A worker's heartbeats come from its IO loop, which a thread holding the
+# GIL for long (importing torch, creating a CUDA context) starves.  A local
+# worker silent past the heartbeat bound whose process is still working
+# (over each BUSY_WINDOW_S it used at least BUSY_CPU_SHARE of a core: a
+# thread waiting for a GIL that a sleeping thread holds uses far less) is
+# given up to this many bounds before it is declared dead (the widest
+# silences seen on a GPU host, actors starting under load, were 1.3 bounds);
+# a stopped or vanished one is declared dead at the bound, an idle one one
+# window later.
+BUSY_SILENCE_FACTOR = 2
+BUSY_WINDOW_S, BUSY_CPU_SHARE = 1.0, 0.1
+
 # --------------------------------------------------------------------------
 # state records
 # --------------------------------------------------------------------------
@@ -130,6 +142,14 @@ class WorkerRec:
     busy_since: float = 0.0  # monotonic time the current lease/actor began
     gpu_id: Optional[str] = None  # pinned GPU id (multi-GPU hosts only)
     addr_tcp: Optional[str] = None  # TCP dual of addr, for remote clients
+    # why the head declared it dead (_on_worker_death), and the last lines
+    # of its log then: what a caller of its actor is told
+    death_cause: str = ""
+    log_tail: str = ""
+    # during a silence past the bound: its process's CPU ticks when the
+    # current window began (-1: no window yet), and when that was
+    silent_ticks: int = -1
+    silent_window_at: float = 0.0
 
 
 @dataclass
@@ -198,6 +218,9 @@ class ObjectRec:
     # reclaim until the last zero-copy pin drops
     spill_path: Optional[str] = None
     pending_free: Optional[str] = None
+    # a ledgerless owner's device result: the address of the process that
+    # holds the value; settling the record tells the owner to release it
+    device_holder: Optional[str] = None
 
 
 @dataclass
@@ -676,6 +699,7 @@ class Head:
                     "contains": r.contains, "cnt_pairs": r.cnt_pairs,
                     "spill_path": r.spill_path,
                     "pending_free": r.pending_free,
+                    "device_holder": r.device_holder,
                 }
                 for r in self.objects.values()
             ],
@@ -787,6 +811,7 @@ class Head:
                 owner_released=r["owner_released"], contains=r["contains"],
                 cnt_pairs=r.get("cnt_pairs"),
                 spill_path=r.get("spill_path"), pending_free=r.get("pending_free"),
+                device_holder=r.get("device_holder"),
             )
             rec.holders = set(r["holders"])
             self.objects[rec.oid] = rec
@@ -2107,10 +2132,16 @@ class Head:
         except asyncio.CancelledError:
             raise  # head shutdown mid-create: not an actor death
         except Exception as e:
+            if isinstance(e, ConnectionError) and rec.state != "dead":
+                # the worker went away mid-__init__: declare it dead now, so
+                # that the error names its cause
+                await self._on_worker_death(rec)
             if a.incarnation != placing_inc:
                 return
             a.state = "dead"
             a.death_cause = f"actor __init__ failed: {e!r}"
+            if rec.death_cause:
+                a.death_cause += "; " + self._death_message(rec)
         self._pub("actors", self._actor_info(a))
 
     def _actor_info(self, a: ActorRec) -> dict:
@@ -2128,13 +2159,84 @@ class Head:
             "method_options": a.method_options,
         }
 
-    async def _on_worker_death(self, rec: WorkerRec):
+    def _silent_but_working(self, rec: WorkerRec) -> bool:
+        """Whether a local worker past the heartbeat bound is still at work,
+        so that its silence is a starved IO loop, not a hang: its process
+        (/proc/<pid>/stat, the CPU time of all its threads) used at least
+        BUSY_CPU_SHARE of a core over the last whole BUSY_WINDOW_S.  A
+        stopped process, a worker on another node or one whose stat is
+        unreadable counts as not working."""
+        if rec.node_id != LOCAL_NODE or not rec.pid:
+            return False
+        try:
+            with open(f"/proc/{rec.pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            return False
+        if fields[0] in ("T", "t", "Z", "X"):
+            return False  # stopped or gone
+        now, ticks = time.monotonic(), int(fields[11]) + int(fields[12])
+        if rec.silent_ticks < 0:
+            rec.silent_ticks, rec.silent_window_at = ticks, now
+            self.stats["busy_silences"] = self.stats.get("busy_silences", 0) + 1
+            self._log_event(
+                "worker_silent", worker_id=rec.worker_id, state=rec.state,
+                proc_state=fields[0],
+            )
+            return True
+        elapsed = now - rec.silent_window_at
+        if elapsed < BUSY_WINDOW_S:
+            return True
+        used = (ticks - rec.silent_ticks) / os.sysconf("SC_CLK_TCK")
+        rec.silent_ticks, rec.silent_window_at = ticks, now
+        return used >= BUSY_CPU_SHARE * elapsed
+
+    @staticmethod
+    def _exit_status(rc: Optional[int]) -> Optional[str]:
+        if rc is None:
+            return None
+        return f"signal {-rc}" if rc < 0 else f"exit {rc}"
+
+    def _worker_log_tail(self, rec: WorkerRec, n: int = 20) -> str:
+        """The last n lines of the worker's log (<session>/<wid>.log; a
+        worker an agent spawned logs on its own node, not read here)."""
+        path = os.path.join(self.session_dir, f"{rec.worker_id}.log")
+        try:
+            with open(path, "rb") as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - 16384))
+                lines = f.read().decode("utf-8", "replace").splitlines()
+        except OSError:
+            return ""
+        return "\n".join(lines[-n:])
+
+    def _death_message(self, rec: WorkerRec) -> str:
+        msg = f"worker {rec.worker_id} (pid {rec.pid}) died: {rec.death_cause}"
+        if rec.log_tail:
+            msg += f"\nlast lines of {rec.worker_id}.log:\n{rec.log_tail}"
+        return msg
+
+    async def _on_worker_death(self, rec: WorkerRec, cause: str = "connection lost"):
+        """Declare the worker dead, for `cause`: "exit <code>" or "signal
+        <n>" (its process ended), "process gone" (a re-adopted worker's pid),
+        "no heartbeat for <s> s in state <state>", "agent reported",
+        "connection lost", "node died" or "node drained".
+        A lost connection to a worker this head spawned is replaced by its
+        exit status when the process has one within half a second."""
         if rec.state == "dead":
             return
         prev_state = rec.state
-        rec.state = "dead"
+        rec.state, rec.death_cause = "dead", cause  # until its exit status is read
+        if rec.proc is not None:
+            deadline = time.monotonic() + (0.5 if cause == "connection lost" else 0.0)
+            while rec.proc.poll() is None and time.monotonic() < deadline:
+                await asyncio.sleep(0.02)
+            cause = self._exit_status(rec.proc.poll()) or cause
+        rec.death_cause = cause
+        rec.log_tail = self._worker_log_tail(rec)
         self._log_event(
-            "worker_died", worker_id=rec.worker_id, prev_state=prev_state, node_id=rec.node_id
+            "worker_died", worker_id=rec.worker_id, prev_state=prev_state,
+            node_id=rec.node_id, cause=cause,
         )
         fut = self._register_waiters.pop(rec.worker_id, None)
         if fut is not None and not fut.done():
@@ -2227,7 +2329,9 @@ class Head:
                     spawn_bg(_restart())
                 else:
                     a.state = "dead"
-                    a.death_cause = a.death_cause or "actor worker died"
+                    a.death_cause = a.death_cause or (
+                        "actor worker died: " + self._death_message(rec)
+                    )
                     self._log_event("actor_dead", actor_id=a.actor_id, cause=a.death_cause)
                     self._drop_actor_name(a)
                     self._pub("actors", self._actor_info(a))
@@ -2287,7 +2391,7 @@ class Head:
         # the node is already marked dead)
         for rec in list(self.workers.values()):
             if rec.node_id == node.node_id and rec.state != "dead":
-                await self._on_worker_death(rec)
+                await self._on_worker_death(rec, "node died")
         # objects: promote a surviving copy to primary, else the object is
         # lost (locate -> not found -> ObjectLostError / reconstruction)
         for rec in list(self.objects.values()):
@@ -2710,7 +2814,7 @@ class Head:
         self._pub_drain(node)
         for rec in list(self.workers.values()):
             if rec.node_id == node.node_id and rec.state != "dead":
-                await self._on_worker_death(rec)
+                await self._on_worker_death(rec, "node drained")
         # the agent tears itself down (kills workers, sweeps shm, exits);
         # providers watching for `drained` may now terminate the VM
         if node.conn is not None and not node.conn.closed:
@@ -2794,6 +2898,8 @@ class Head:
                 self._free_spill(rec.spill_path, rec.node_id)
             for nid, name in rec.copies.items():
                 self._free_shm_name(name, nid)
+            if rec.device_holder:
+                self._release_device_holder(rec)
             if rec.contains:
                 # release this object's containment pins on nested refs
                 edge = f"cnt:{rec.oid.hex()}"
@@ -3305,7 +3411,9 @@ class Head:
         """Node agent reports one of its worker processes exited."""
         rec = self.workers.get(msg["wid"])
         if rec is not None:
-            await self._on_worker_death(rec)
+            await self._on_worker_death(
+                rec, self._exit_status(msg.get("rc")) or "agent reported"
+            )
 
     async def _h_heartbeat(self, state, msg, reply, reply_err):
         rec = self.workers.get(msg.get("client_id", state.get("client_id")))
@@ -3840,10 +3948,30 @@ class Head:
             # the submitter owns task returns; the connecting client owns puts
             owner=msg.get("owner") or state.get("client_id", "?"),
             node_id=msg.get("node") or state.get("node_id", LOCAL_NODE),
+            device_holder=msg.get("device_holder"),
+            owner_released=bool(msg.get("owner_released")),
         )
         rec.holders |= self._take_early_refs(oid)
         self.objects[oid] = rec
         self.stats["objects_created"] += 1
+        if rec.owner_released:
+            self._obj_maybe_gc(rec)
+
+    def _release_device_holder(self, rec: ObjectRec) -> None:
+        """A ledgerless owner's device result settled here: push
+        `release_device` to the owner over its head connection, and the
+        owner tells the holder (worker._release_device_objects).  An owner
+        that is gone makes this a no-op, as a dead holder does."""
+        st = self._clients.get(rec.owner)
+        if st is None:
+            return
+        try:
+            write_frame(st["writer"], {
+                "m": "release_device", "holder": rec.device_holder,
+                "oids": [rec.oid],
+            })
+        except Exception:
+            pass
 
     def _forward_to_owner(self, owner: str, frame: dict) -> bool:
         """Push a settlement frame to a live owner's ledger over its own head
@@ -5095,7 +5223,7 @@ class Head:
                 if rec.state == "dead":
                     continue
                 if rec.proc is not None and rec.proc.poll() is not None:
-                    await self._on_worker_death(rec)
+                    await self._on_worker_death(rec, self._exit_status(rec.proc.poll()))
                     continue
                 if rec.proc is None and rec.node_id == LOCAL_NODE and rec.pid:
                     # re-adopted after a head restart: no Popen handle, poll
@@ -5103,16 +5231,29 @@ class Head:
                     try:
                         os.kill(rec.pid, 0)
                     except ProcessLookupError:
-                        await self._on_worker_death(rec)
+                        await self._on_worker_death(rec, "process gone")
                         continue
                     except PermissionError:
                         pass
-                if (
-                    rec.state != "starting"
-                    and now - rec.last_heartbeat
-                    > period * self.config.health_check_failure_threshold
-                ):
-                    await self._on_worker_death(rec)
+                if rec.state == "starting":
+                    continue
+                gap = now - rec.last_heartbeat
+                if gap > self.stats.get("max_heartbeat_gap_s", 0.0):
+                    # the widest silence seen from a live worker: how close
+                    # the cluster came to the bound below
+                    self.stats["max_heartbeat_gap_s"] = gap
+                    self.stats["max_heartbeat_gap_worker"] = (
+                        f"{rec.worker_id} in state {rec.state}"
+                    )
+                bound = period * self.config.health_check_failure_threshold
+                if gap <= bound:
+                    rec.silent_ticks = -1
+                    continue
+                if gap <= bound * BUSY_SILENCE_FACTOR and self._silent_but_working(rec):
+                    continue
+                await self._on_worker_death(
+                    rec, f"no heartbeat for {gap:.1f} s in state {rec.state}"
+                )
             for node in list(self.nodes.values()):
                 if not node.up or node.is_local:
                     continue

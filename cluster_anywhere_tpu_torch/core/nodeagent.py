@@ -734,7 +734,8 @@ class NodeAgent:
                         self.chip_alloc.release(self._worker_chips.pop(wid, None))
                     try:
                         self.head.notify(
-                            "worker_exit", **self._auth({"wid": wid})
+                            "worker_exit",
+                            **self._auth({"wid": wid, "rc": proc.returncode}),
                         )
                     except Exception:
                         pass

@@ -1109,6 +1109,11 @@ class Worker:
                 msg.get("as_id") or "head", bool(msg.get("ttl")),
             )
             return
+        if msg.get("m") == "release_device":
+            # the head's registry settled device results this ledgerless
+            # owner registered (_note_device_holder): release their holder
+            self._release_device_objects(msg["holder"], list(msg.get("oids") or ()))
+            return
         if msg.get("m") == "owner_transit_done":
             # relayed receiver ack for a transit pin held in this ledger
             self.serve_owner_transit_done(
@@ -1891,11 +1896,23 @@ class Worker:
         stays in `holder` until the ledger settles the object, which
         releases it there (_ledger_clear); settled already, it is released
         now.  Without a ledger (client mode, owner_plane off) the head
-        counts the borrowers, so no release is sent: the value stays until
-        its holder exits."""
+        counts the borrowers: the object is registered there with its
+        holder, and when the head's registry settles it the head tells this
+        owner (`release_device` push), which releases the holder."""
         led = self.owner_ledger
-        if led is not None and not led.set_device_holder(oid_b, holder):
-            self._release_device_objects(holder, [oid_b])
+        if led is not None:
+            if not led.set_device_holder(oid_b, holder):
+                self._release_device_objects(holder, [oid_b])
+            return
+        # every local handle may be gone already (the dec is then queued or
+        # sent): the record starts released, and settles once its borrowers,
+        # early refs the head took over, are gone
+        released = self.reference_counter.local_count(ObjectID(oid_b)) == 0
+        self._notify_threadsafe(
+            "obj_created", oid=oid_b, shm_name=None, size=0,
+            owner=self.client_id, device_holder=holder,
+            owner_released=released,
+        )
 
     def _release_device_objects(self, holder: str, oids: List[bytes]) -> None:
         """Tell the process holding these device results that their owner

@@ -1056,9 +1056,17 @@ class WorkerProcess:
         os._exit(0)
 
     async def _heartbeat_loop(self):
-        period = self.config.health_check_period_s / 2
+        period = min(self.config.health_check_period_s / 2, 1.0)
+        loop = asyncio.get_running_loop()
         while True:
-            await asyncio.sleep(min(period, 1.0))
+            t0 = loop.time()
+            await asyncio.sleep(period)
+            late = loop.time() - t0 - period
+            if late > self.config.health_check_period_s:
+                # the IO loop did not run for this long (a thread holding
+                # the GIL, a stopped process): the head may have declared
+                # this worker dead meanwhile
+                _say(f"heartbeat {late:.1f} s late")
             try:
                 self.worker.head.notify("heartbeat", client_id=self.worker_id)
             except Exception:
@@ -1122,6 +1130,7 @@ class WorkerProcess:
             )
         # brief grace for the cancellations to unwind, then hard exit (the
         # agent's fence reset SIGKILLs us anyway if we linger)
+        _say("the head declared this worker dead (fenced): exiting")
         self.loop.call_later(0.25, os._exit, 1)
 
     async def _watch_head(self):
@@ -1135,11 +1144,13 @@ class WorkerProcess:
         while True:
             await asyncio.sleep(0.5)
             if self.worker._head_fenced:
+                _say("the head declared this worker dead (fenced): exiting")
                 os._exit(1)
             if self.worker.head is None or self.worker.head.closed:
                 if down_since is None:
                     down_since = asyncio.get_running_loop().time()
                 elif asyncio.get_running_loop().time() - down_since > grace:
+                    _say(f"no head for {grace:.0f} s: exiting")
                     os._exit(1)
             else:
                 down_since = None
@@ -1150,6 +1161,12 @@ class WorkerProcess:
             self.loop.run_until_complete(self._amain())
         except (KeyboardInterrupt, SystemExit):
             pass
+
+
+def _say(line: str) -> None:
+    """One line to the worker's log (its stderr), for the head to quote
+    when it declares the worker dead."""
+    print(f"[ca worker {os.getpid()}] {line}", file=sys.stderr, flush=True)
 
 
 def main():

@@ -539,6 +539,11 @@ NO_LEDGER = textwrap.dedent("""
             self.borrowed = list(refs)
             return len(self.borrowed)
 
+        def unborrow(self):
+            self.borrowed = []
+            gc.collect()
+            return 0
+
         def read(self, v):
             return v["kv"].float().tolist()
 
@@ -554,23 +559,30 @@ NO_LEDGER = textwrap.dedent("""
         gc.collect()
         read = ca.get(pending, timeout=60)
         time.sleep(1.0)
-        print("RESULT " + json.dumps([ledger, lent, read, ca.get(holder.count.remote(), timeout=60)]))
+        held = ca.get(holder.count.remote(), timeout=60)
+        ca.get(keeper.unborrow.remote(), timeout=60)
+        deadline = time.monotonic() + 30
+        while ca.get(holder.count.remote(), timeout=60) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        after = ca.get(holder.count.remote(), timeout=60)
+        print("RESULT " + json.dumps([ledger, lent, read, held, after]))
     finally:
         ca.shutdown()
 """)
 
 
-def test_without_a_ledger_a_device_result_stays_with_its_holder():
-    """With the owner plane off the head, not the owner, counts borrowers,
-    so no release is sent: a ref another actor borrowed keeps its value
-    after the driver dropped its own, and the value stays until its holder
-    exits.  Run in a cluster of its own (CA_OWNER_PLANE=0)."""
+def test_without_a_ledger_a_device_result_is_released_once_the_borrow_ends():
+    """With the owner plane off the head, not the owner, counts borrowers:
+    a ref another actor borrowed keeps its value after the driver dropped
+    its own, and once the borrow ends the head's registry settles the
+    object and the owner tells the holder, which drops the value.  Run in a
+    cluster of its own (CA_OWNER_PLANE=0)."""
     env = dict(os.environ, PYTHONPATH=REPO, CA_OWNER_PLANE="0")
     out = subprocess.run([sys.executable, "-c", NO_LEDGER], env=env, cwd="/",
                          capture_output=True, text=True, timeout=3 * T)
     assert out.returncode == 0, out.stderr[-3000:]
     line = next(ln for ln in out.stdout.splitlines() if ln.startswith("RESULT "))
-    assert json.loads(line[len("RESULT "):]) == [False, 1, [0.0, 1.0, 2.0], 1]
+    assert json.loads(line[len("RESULT "):]) == [False, 1, [0.0, 1.0, 2.0], 1, 0]
 
 
 def test_a_release_to_a_dead_holder_raises_nothing(cluster):
