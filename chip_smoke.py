@@ -79,14 +79,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      rank and the bytes each collective moved are printed (4 ranks on one
      card: not a scaling number).  A rank that fails or hangs fails the
      phase, and the others are killed.
-  8. the Train library, on a session of the port's runtime of its own:
-     train-lib, TorchTrainer(...).fit() with one GPU worker training the
-     flagship from seed 0 on the train-data cell's rows (cad.from_numpy,
+  8. the Train library, on a session of the port's runtime of its own, at
+     the flagship's widths and 4 of its 8 layers (TL_LAYERS): train-lib,
+     TorchTrainer(...).fit() with one GPU worker training it from seed 0
+     on the train-data cell's rows (cad.from_numpy,
      get_dataset_shard(...).iter_torch_batches) for 12 steps, saving
      params and AdamW state (Checkpoint.save_pytree, keep 2) after steps 6
-     and 12 (step 1's loss to 1e-6 of the train-data cell's, the loss
-     falling, 8 launches of each kernel a step counted inside the worker,
-     none in the driver); the same fit failing once after step 9, which the
+     and 12 (step 1's loss to 1e-6 of the one-device step's on the same
+     batch, run here first, the loss falling, 4 launches of each kernel a
+     step counted inside the worker, none in the driver); the same fit
+     failing once after step 9, which the
      controller restarts from step 6's checkpoint (steps 7-12 to 1e-6 of
      the first fit's, Result.checkpoint's params bit-equal to the
      worker's); train-lib-fsdp, 4 workers at 0.25 GPU on one fsdp2 x tp2
@@ -149,6 +151,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      generate cell (its tokens equal to phase 3's or a near-tie) and a CPU
      step failing once, which workflow.resume finishes without running
      the GPU step again.  Under one watchdog; the driver launches nothing.
+  12. the operator's surface (cluster_utils, util.chaos, jobs, autoscaler,
+     dashboard, cli), each cell on a session of its own, under one
+     watchdog: ops-up-job, `python -m cluster_anywhere_tpu_torch.cli up`
+     of a YAML (a head of 2 CPUs and no GPU, one node of 2 CPUs and 1 GPU),
+     `ca status`, `ca list nodes` and the dashboard's /api/nodes showing
+     the GPU on that node alone, `ca submit -- python job.py` of a job
+     script written here that imports only the port and runs the generate
+     cell in a num_gpus=1 actor (SUCCEEDED in `ca jobs` and
+     /api/jobs/<id>; the tokens, read from its logs through
+     JobSubmissionClient, equal to phase 3's or differing on a near-tie;
+     the forward launched in the actor, nothing in the job's driver, which
+     sees no card), `ca down` leaving no process; ops-autoscale, a Cluster
+     whose head has no GPU under Autoscaler(AgentNodeProvider()) with one
+     node type {CPU: 2, GPU: 1}: a num_gpus=1 actor's demand launches the
+     node, the actor runs the generate cell there (the same checks), and
+     the node is terminated within idle_timeout_s + 10 s of the actor's
+     kill; ops-preempt, a Cluster of two nodes of one GPU each (sharing the
+     card) under TorchTrainer, 2 workers (min 1) on fsdp2 over TorchConfig's
+     gloo group, max_failures 0, training the flagship on the train cell's
+     batch for 12 steps, with PreemptionSimulator warning rank 1's node
+     after step 3: the barrier checkpoint, one budget-exempt restart at
+     world 1 on the survivor loading it, every step 1-12 reported (at most
+     2 run again), each loss within 1e-3 relative of the one-device run's
+     on the same weights and batch (world 2 from seed 0, world 1 from the
+     checkpoint it loaded), all three kernels launched in the
+     workers and none in the driver.  No process of a session is left.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
@@ -156,8 +184,8 @@ kernel; the HTTP and processor cells launch nothing in the driver.
 Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
 replica's, the processor actor's, the parallel ranks', the Train
-workers', the Prefiller's, the RPC wave replica's, the Tune trials' and
-the workflow step's included), the
+workers', the Prefiller's, the RPC wave replica's, the Tune trials', the
+workflow step's and phase 12's actors' and workers' included), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -1156,12 +1184,7 @@ def phase_serve_http(torch, attn, cfg, server):
     finally:
         serve.shutdown()
         ca.shutdown()
-    deadline = time.monotonic() + 30
-    alive = pids
-    while alive and time.monotonic() < deadline:
-        alive = [p for p in alive if _pid_alive(p)]
-        time.sleep(0.2)
-    check(not alive, f"processes of the port's session still alive after shutdown: {alive}")
+    wait_gone(pids, "the port's session")
     log(f"[serve-http] serve.shutdown() and ca.shutdown(): none of {len(pids)} processes "
         f"(head and workers) left")
     return after["launches"], {"ttft": ttft, "gaps": gaps}
@@ -1177,6 +1200,20 @@ def _pid_alive(pid):
             return f.read().split(")")[-1].split()[0] != "Z"
     except OSError:
         return False
+
+
+def wait_gone(pids, session):
+    """Waits up to 30 s for a session's processes to end after its
+    shutdown; fails the phase if one is left.  Returns the s it took."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 30
+    alive = list(pids)
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        if alive:
+            time.sleep(0.1)
+    check(not alive, f"processes of {session} still alive after shutdown: {alive}")
+    return time.perf_counter() - t0
 
 
 # ----------------------------------------------------------------- phase 4c
@@ -1442,12 +1479,7 @@ def phase_data(torch, attn, cfg, train_ms):
         pids = [w["pid"] for w in state.list_workers()] + [api._head_proc.pid]
     finally:
         ca.shutdown()
-    deadline = time.monotonic() + 30
-    alive = pids
-    while alive and time.monotonic() < deadline:
-        alive = [p for p in alive if _pid_alive(p)]
-        time.sleep(0.2)
-    check(not alive, f"processes of the port's session still alive after shutdown: {alive}")
+    wait_gone(pids, "the port's session")
     return (train[0] + actor_fwd,) + train[1:], train_loss, train_data_ms
 
 
@@ -2040,6 +2072,7 @@ def par_report_cell(cell, got):
 # travel to the workers by value: no package module holds a train loop).
 
 TL_STEPS, TL_CKPT_EVERY, TL_FAIL_AFTER = 12, 6, 9  # train-lib: steps, save after 6 and 12, fail after 9
+TL_LAYERS = 4  # the Train cells' depth, cut from the flagship's 8 with the widths kept: the time limit
 TL_FSDP_STEPS, TL_FSDP_CKPT = 5, 4  # train-lib-fsdp: steps, the sharded save after step 4
 TL_DEADLINE_S = 900  # the whole phase, under one watchdog
 HOST_PROBE_WORLD, HOST_PROBE_REPS = 4, 5
@@ -2394,19 +2427,27 @@ def phase_train_lib(torch, attn, ref):
     their own (ca.init detects the GPU): train-lib and its failure and
     resume, train-lib-fsdp and its reshard onto 2 workers, and the host
     collective groups' probe, under one watchdog, each checked and logged
-    as it ends; no process of the session left after shutdown.  `ref`
-    holds the train and train-data cells' numbers from this call.  Returns
-    the workers' kernel launches (fwd, dQ, dK/dV)."""
+    as it ends; no process of the session left after shutdown.  The cells
+    run the flagship at TL_LAYERS of its layers.  `ref` holds the train
+    and train-data cells' ms from this call.  Returns the workers' kernel
+    launches (fwd, dQ, dK/dV)."""
     import shutil
 
     import cluster_anywhere_tpu_torch as ca
     from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.models import make_train_step
     from cluster_anywhere_tpu_torch.util import state
 
-    cfg = flagship()
+    cfg = dataclasses.replace(flagship(), n_layers=TL_LAYERS)
     n = TRAIN_STEPS + 1  # the train-data cell's rows: 88 x 1025
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B * n, TRAIN_T + 1))
     batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1))
+    # what the worker's step 1 is held to: the one-device step here on the
+    # first batch the Data shard gives it (the rows' first TRAIN_B)
+    step, init_state = make_train_step(cfg)
+    model, opt = init_state(0)
+    ref = dict(ref, step1_loss=step(model, opt, {"ids": torch.from_numpy(ids[:TRAIN_B]).cuda()})[2].item())
+    del step, model, opt
     storage = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_lib")
     shutil.rmtree(storage, ignore_errors=True)
     os.makedirs(storage)
@@ -2432,12 +2473,7 @@ def phase_train_lib(torch, attn, ref):
     finally:
         ca.shutdown()
         shutil.rmtree(storage, ignore_errors=True)
-    deadline = time.monotonic() + 30
-    alive = pids
-    while alive and time.monotonic() < deadline:
-        alive = [p for p in alive if _pid_alive(p)]
-        time.sleep(0.2)
-    check(not alive, f"processes of the Train session still alive after shutdown: {alive}")
+    wait_gone(pids, "the Train session")
     log(f"[train-lib] phase 8 in {time.perf_counter() - t_phase:.1f} s on "
         f"{gpu_clocks('name,power.limit')}; workers' launches (fwd, dQ, dK/dV) {launches}, the "
         f"driver's {driver}")
@@ -2482,27 +2518,30 @@ def tl_report_single(one, cfg, ref, driver):
     losses = [m["loss"] for m in steps]
     check([m["step"] for m in steps] == list(range(1, TL_STEPS + 1)),
           f"[train-lib] steps reported {[m['step'] for m in steps]}")
-    rel1 = abs(losses[0] - ref["train_data_loss"]) / abs(ref["train_data_loss"])
+    rel1 = abs(losses[0] - ref["step1_loss"]) / abs(ref["step1_loss"])
     step_ms = float(np.median([m["step_ms"] for m in steps[1:]]))
     saves = [m for m in first.metrics_history if "save_ms" in m]
     copies = [m["report_ms"] for m in first.metrics_history if "report_ms" in m]
     startup = steps[0]["t_start"] - one["first_t0"]
     kept = sorted(int(c.load_pytree()["opt"]["count"]) for c, _ in first.best_checkpoints)
-    log(f"[train-lib] TorchTrainer, 1 GPU worker, the flagship from seed 0, cad.from_numpy(ids "
+    log(f"[train-lib] TorchTrainer, 1 GPU worker, the flagship at {cfg.n_layers} layers from seed 0, "
+        f"cad.from_numpy(ids "
         f"{TRAIN_B * (TRAIN_STEPS + 1)} x {TRAIN_T + 1}) through get_dataset_shard(...)."
         f"iter_torch_batches(batch_size={TRAIN_B}): step {step_ms:.2f} ms (median of steps 2-"
         f"{TL_STEPS}, worker's clock) against the train cell's {ref['train_ms']:.2f} and the "
-        f"train-data cell's {ref['train_data_ms']:.2f} in this call; fit {one['first_s']:.2f} s, "
+        f"train-data cell's {ref['train_data_ms']:.2f} at 8 layers in this call; fit "
+        f"{one['first_s']:.2f} s, "
         f"the worker's loop started {startup:.2f} s after fit() began and built the model in "
         f"{steps[0]['build_s']:.2f} s; save_pytree of params and AdamW state "
         + ", ".join(f"{m['save_ms']:.0f} ms for {m['save_bytes'] / 1e9:.3f} GB" for m in saves)
         + f", report's copy into the trial dir {', '.join(f'{x:.0f}' for x in copies)} ms; "
         f"kept checkpoints (num_to_keep=2) of steps {kept}")
-    log(f"[train-lib] step 1's loss {losses[0]:.6f} vs the train-data cell's {ref['train_data_loss']:.6f} "
+    log(f"[train-lib] step 1's loss {losses[0]:.6f} vs the one-device step's on the same batch "
+        f"{ref['step1_loss']:.6f} "
         f"(relative {rel1:.3g}, limit {TL_TOL['step1_rel']:g}); loss over {TL_STEPS} steps "
         f"{' '.join(f'{x:.4f}' for x in losses)}; launches a step in the worker "
         f"{sorted({tuple(m['launches']) for m in steps})}, in the driver {driver}")
-    check(rel1 <= TL_TOL["step1_rel"], "[train-lib] step 1's loss is off the train-data cell's")
+    check(rel1 <= TL_TOL["step1_rel"], "[train-lib] step 1's loss is off the one-device step's")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"[train-lib] loss did not fall: {losses}")
     check(all(tuple(m["launches"]) == (cfg.n_layers,) * 3 for m in steps),
           f"[train-lib] a step did not launch each kernel {cfg.n_layers} times in the worker")
@@ -2551,7 +2590,7 @@ def tl_report_fsdp(fsdp):
     launches = tuple(map(sum, zip(*(m["launches"] for m in four + two))))
     save = [m["save_ms"] for m in four if "save_ms" in m]
     log(f"[train-lib-fsdp] TorchTrainer, 4 workers at 0.25 GPU sharing the card, "
-        f"TorchConfig(backend='gloo'), fsdp2 x tp2 at flagship width: step "
+        f"TorchConfig(backend='gloo'), fsdp2 x tp2 at flagship width and {TL_LAYERS} layers: step "
         f"{float(np.median([m['step_ms'] for m in four[1:]])):.1f} ms (median of steps 2-"
         f"{TL_FSDP_STEPS}, rank 0's clock; 4 ranks on one card: not a scaling number); "
         f"save_pytree_sharded after step {TL_FSDP_CKPT} {save[0]:.0f} ms; fit "
@@ -2722,6 +2761,23 @@ def near_tie_rows(torch, model, cfg, ids, lens, want, got, what, tag="dag-transp
             f"logit gap {gap:.4f}, near-tie {tie}")
         check(tie, f"[{tag}] {what} row {i} differs, and not on a near-tie")
     return differing
+
+
+def tokens_vs_generate(torch, cfg, device, gen_tokens, tokens, what, tag):
+    """Rows of the generate cell's tokens against another run's; a
+    differing row must be a near-tie.  Returns the rows that differ."""
+    tokens = np.asarray(tokens)
+    check(tokens.shape == (B, N_NEW), f"[{tag}] tokens {tokens.shape}")
+    if np.array_equal(tokens, gen_tokens):
+        return 0
+    from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+    model = init_params(cfg, 0, device=device)
+    ids, lens = generate_prompts(torch, cfg, 0, device)
+    try:
+        return near_tie_rows(torch, model, cfg, ids, lens, gen_tokens, tokens, what, tag)
+    finally:
+        del model
 
 
 def cache_digest(torch, cache):
@@ -2974,12 +3030,7 @@ def phase_device_plane(torch, attn, cfg, gen_tokens, server_tokens, compiled_sse
     finally:
         os.environ.pop(STRICT, None)
         ca.shutdown()
-    deadline = time.monotonic() + 30
-    alive = pids
-    while alive and time.monotonic() < deadline:
-        alive = [p for p in alive if _pid_alive(p)]
-        time.sleep(0.2)
-    check(not alive, f"processes of the device-plane session still alive after shutdown: {alive}")
+    wait_gone(pids, "the device-plane session")
     log(f"[device-plane] phase 9 in {time.perf_counter() - t_phase:.1f} s; none of {len(pids)} "
         f"processes of its session left")
     return launches + rpc_launches
@@ -3436,12 +3487,7 @@ def phase_rl(torch, attn, device="cuda"):
     finally:
         algorithm.EnvRunner = runner_cls
         ca.shutdown()
-    deadline = time.monotonic() + 30
-    alive = pids
-    while alive and time.monotonic() < deadline:
-        alive = [p for p in alive if _pid_alive(p)]
-        time.sleep(0.2)
-    check(not alive, f"processes of the RL session still alive after shutdown: {alive}")
+    wait_gone(pids, "the RL session")
     launches = launch_counts(attn)
     check(launches == (0, 0, 0), f"[rl] the flash kernels launched {launches} in this phase")
     log(f"[rl] phase 10 in {time.perf_counter() - t_phase:.1f} s; the flash kernels' launches in "
@@ -3819,17 +3865,8 @@ def tw_report_workflow(torch, wf, cfg, gen_tokens, device, card, per_layer):
     check(wf["runs"] == 1, f"[workflow-gpu] the GPU step ran {wf['runs']} times, want once")
     check(step1["launches"] == per_layer,
           f"[workflow-gpu] the GPU step launched flash_fwd {step1['launches']} times")
-    tokens = step1["tokens"]
-    check(tokens.shape == (B, N_NEW), f"[workflow-gpu] tokens {tokens.shape}")
-    differing = 0
-    if not np.array_equal(tokens, gen_tokens):
-        from cluster_anywhere_tpu_torch.models.transformer import init_params
-
-        model = init_params(cfg, 0, device=device)
-        ids, lens = generate_prompts(torch, cfg, 0, device)
-        differing = near_tie_rows(torch, model, cfg, ids, lens, gen_tokens, tokens, "GPU step",
-                                  "workflow-gpu")
-        del model
+    differing = tokens_vs_generate(torch, cfg, device, gen_tokens, step1["tokens"], "GPU step",
+                                   "workflow-gpu")
     log(f"[workflow-gpu] a two-step workflow: the generate cell's 8 prompts +{N_NEW} on the "
         f"flagship in a num_gpus=1 task ({step1['ms']:.1f} ms of generate, {step1['launches']} "
         f"flash_fwd launches inside it), then a CPU task failing once: first run {wf['wall']:.2f} s "
@@ -3930,12 +3967,7 @@ def phase_tune_workflow(torch, attn, ref, device="cuda", cfg=None, b=TRAIN_B, t=
     finally:
         ca.shutdown()
         shutil.rmtree(storage, ignore_errors=True)
-    deadline = time.monotonic() + 30
-    alive = pids
-    while alive and time.monotonic() < deadline:
-        alive = [p for p in alive if _pid_alive(p)]
-        time.sleep(0.2)
-    check(not alive, f"processes of the Tune session still alive after shutdown: {alive}")
+    wait_gone(pids, "the Tune session")
     driver = launch_counts(attn)
     log(f"[tune] phase 11 in {time.perf_counter() - t_phase:.1f} s; launches (fwd, dQ, dK/dV) in "
         f"the trials and the workflow's step {launches}, in the driver {driver}")
@@ -3963,6 +3995,627 @@ def tw_host_reference(torch, cfg, b, t):
     out = generate(init_params(cfg, 0, device="cpu"), ids_t, cfg=cfg, max_new_tokens=N_NEW,
                    prompt_lens=lens_t)
     return {"train_loss1": loss.item(), "train_ms": train_ms, "gen_tokens": out.numpy()}
+
+
+# ----------------------------------------------------------------- phase 12
+
+OPS_DEADLINE_S = 600  # the whole phase, under one watchdog
+OPS_WAIT_S = 180  # the bound on each CLI call, job and node wait of the phase
+OPS_IDLE_S = 5  # ops-autoscale: AutoscalerConfig(idle_timeout_s=...), interval 1 s
+OPS_STEPS, OPS_PREEMPT_AT = 12, 3  # ops-preempt: steps, the step after which the warning fires
+OPS_KILL_AFTER_S = 60.0  # PreemptionSimulator's SIGKILL: past the drain's 30-s deadline
+OPS_TOL = {"loss_rel": 1e-3, "rerun": 2}
+OPS_COUNTERS = ("preempt_restarts_total", "preempt_barrier_acked_total",
+                "budget_exempt_attempts_total")  # each must read 1 after the preemption
+
+# The generate cell in a GPU actor.  One source for the job script of
+# ops-up-job, which imports only the port, and for ops-autoscale, which
+# runs it from this process (exec'd into a namespace of its own, so that
+# the class travels to the worker by value).
+OPS_GENERATOR = r'''
+class Generator:
+    """The generate cell on the flagship from seed 0 in an actor: the
+    model built in __init__ (no card, no actor: there is no fallback),
+    generate() returns the tokens, ms and the flash kernels' launches
+    counted in this process."""
+
+    def __init__(self, fields, device):
+        import importlib
+        import os
+
+        import torch
+
+        from cluster_anywhere_tpu_torch.models import TransformerConfig
+        from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+        if device != "cpu" and not torch.cuda.is_available():
+            raise RuntimeError("a GPU actor found no card (CUDA_VISIBLE_DEVICES="
+                               f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+        self.cfg, self.device = TransformerConfig(**fields), device
+        self.model = init_params(self.cfg, 0, device=device)
+        self.attn = importlib.import_module("cluster_anywhere_tpu_torch.ops.attention")
+        self.node = os.environ.get("CA_NODE_ID", "n0")
+
+    def ready(self):
+        return self.node
+
+    def generate(self, ids, lens, n_new):
+        import os
+        import time
+
+        import torch
+
+        from cluster_anywhere_tpu_torch.models.generate import generate
+
+        a = self.attn
+        before = (a.flash_attention.launches, a.flash_bwd_dq.launches, a.flash_bwd_dkv.launches)
+        t0 = time.perf_counter()
+        out = generate(self.model, torch.tensor(ids, device=self.device), cfg=self.cfg,
+                       max_new_tokens=n_new, prompt_lens=torch.tensor(lens, device=self.device))
+        tokens = out.cpu().tolist()
+        after = (a.flash_attention.launches, a.flash_bwd_dq.launches, a.flash_bwd_dkv.launches)
+        return {"tokens": tokens, "ms": (time.perf_counter() - t0) * 1e3, "node": self.node,
+                "launches": [x - y for x, y in zip(after, before)],
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+'''
+
+# The job of ops-up-job: its driver joins the cluster (CA_ADDRESS), runs the
+# generate cell in a num_gpus=1 actor and prints one JSON line.
+OPS_JOB = r'''
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+import cluster_anywhere_tpu_torch as ca
+
+here = os.path.dirname(os.path.abspath(__file__))
+with open(os.path.join(here, "job.json")) as f:
+    spec = json.load(f)
+inp = np.load(os.path.join(here, "prompts.npz"))
+ns = {"__name__": "ops_job_generator"}
+exec(spec["generator"], ns)
+ca.init(address=os.environ["CA_ADDRESS"])
+try:
+    t0 = time.perf_counter()
+    gen = ca.remote(num_gpus=1)(ns["Generator"]).remote(spec["cfg"], spec["device"])
+    ca.get(gen.ready.remote(), timeout=spec["wait_s"])
+    ready_s = time.perf_counter() - t0
+    out = ca.get(gen.generate.remote(inp["ids"].tolist(), inp["lens"].tolist(), spec["n_new"]),
+                 timeout=spec["wait_s"])
+    ca.kill(gen)
+finally:
+    ca.shutdown()
+attn = sys.modules.get("cluster_anywhere_tpu_torch.ops.attention")  # never imported here
+driver = ([attn.flash_attention.launches, attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches]
+          if attn else [0, 0, 0])
+print("OPS_JOB " + json.dumps(dict(out, ready_s=ready_s, driver_launches=driver,
+                                   driver_visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                                   driver_torch="torch" in sys.modules)))
+'''
+
+
+def ops_generator_class():
+    """OPS_GENERATOR's class, defined in a namespace no worker imports."""
+    ns = {"__name__": "ops_generator"}
+    exec(OPS_GENERATOR, ns)
+    return ns["Generator"]
+
+
+def ops_cli(args, env, cwd):
+    """One `python -m cluster_anywhere_tpu_torch.cli ...`, as a user types
+    it; fails the phase on a non-zero exit.  Returns (stdout, s)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cluster_anywhere_tpu_torch.cli", *args], env=env,
+                       cwd=cwd, capture_output=True, text=True, timeout=OPS_WAIT_S)
+    s = time.perf_counter() - t0
+    check(p.returncode == 0, f"[ops] `ca {' '.join(args)}` exited {p.returncode}: "
+                             f"{p.stdout[-2000:]} {p.stderr[-3000:]}")
+    return p.stdout, s
+
+
+def http_json(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def ops_events(session_dir):
+    """The session's events.jsonl, minus heartbeat noise."""
+    out = []
+    with open(os.path.join(session_dir, "events.jsonl")) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev.get("event") in ("node_draining", "node_drained", "node_died", "actor_migrating",
+                                   "actor_alive", "actor_dead", "worker_died"):
+                out.append(ev)
+    return out
+
+
+def ops_session_pids(session_dir):
+    """The pids of a session's head, node agents and workers, read through
+    this process's connection to it."""
+    from cluster_anywhere_tpu_torch.util import state
+
+    with open(os.path.join(session_dir, "head.ready")) as f:
+        pids = [int(f.read())]
+    pids += [n["pid"] for n in state._head("nodes")["nodes"] if n.get("pid")]
+    return pids + [w["pid"] for w in state.list_workers() if w.get("pid")]
+
+
+def ops_shutdown(c):
+    """Ends a Cluster's session as `ca down` does (the head tells its
+    agents and workers to exit), then Cluster.shutdown() kills whatever is
+    left and removes the session."""
+    from cluster_anywhere_tpu_torch.core.worker import try_global_worker
+
+    w = try_global_worker()
+    try:
+        if w is not None:
+            w.shutdown(stop_cluster=True)
+    finally:
+        c.shutdown()
+
+
+def ops_up_job(torch, cfg, device, gen_tokens, card, per_layer, tmp):
+    """ops-up-job: `ca up` (a head without a GPU, one node with one), `ca
+    status`, `ca list nodes` and the dashboard, `ca submit` of a job that
+    runs the generate cell in a num_gpus=1 actor, `ca jobs`, the job's logs
+    through JobSubmissionClient, `ca down`; no process of the session left.
+    Returns the actor's launches."""
+    import re
+
+    from cluster_anywhere_tpu_torch.jobs import JobSubmissionClient
+
+    t_cell = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(os.path.join(tmp, "cluster.yaml"), "w") as f:
+        f.write("head: {num_cpus: 2, num_gpus: 0}\n"
+                "nodes:\n  - {count: 1, num_cpus: 2, num_gpus: 1}\n")
+    ids, lens = generate_prompts(torch, cfg, 0, "cpu")
+    np.savez(os.path.join(tmp, "prompts.npz"), ids=ids.numpy(), lens=lens.numpy())
+    with open(os.path.join(tmp, "job.json"), "w") as f:
+        json.dump({"cfg": cfg_fields(cfg), "device": device, "n_new": N_NEW, "wait_s": OPS_WAIT_S,
+                   "generator": OPS_GENERATOR}, f)
+    with open(os.path.join(tmp, "job.py"), "w") as f:
+        f.write(OPS_JOB)
+    out, up_s = ops_cli(["up", "cluster.yaml"], env, tmp)
+    sdir = re.search(r"head up at (\S+)", out).group(1)
+    connected, pids = False, []
+    try:
+        status, _ = ops_cli(["status", "--address", sdir], env, tmp)
+        check(re.search(r"^  GPU: 1 / 1 available$", status, re.M),
+              f"[ops-up-job] `ca status` shows no GPU 1: {status[:600]}")
+        listed, _ = ops_cli(["list", "nodes", "--address", sdir], env, tmp)
+        gpu_nodes = [n for n in json.loads(listed) if n["alive"] and n["resources"].get("GPU")]
+        check(len(gpu_nodes) == 1 and not gpu_nodes[0]["is_head_node"]
+              and gpu_nodes[0]["resources"]["GPU"] == 1.0,
+              f"[ops-up-job] `ca list nodes` gives GPU nodes {gpu_nodes}")
+        node = gpu_nodes[0]["node_id"]
+        url = ops_cli(["dashboard", "--address", sdir], env, tmp)[0].strip()
+        api_nodes = {n["node_id"]: n for n in http_json(url + "/api/nodes")}
+        check(api_nodes[node]["resources"].get("GPU") == 1.0
+              and api_nodes[node]["available"].get("GPU") == 1.0
+              and not any(n["resources"].get("GPU") for k, n in api_nodes.items() if k != node),
+              f"[ops-up-job] the dashboard's /api/nodes: {api_nodes}")
+        submitted, submit_s = ops_cli(["submit", "--address", sdir, "--", "python", "job.py"],
+                                      env, tmp)
+        sid = re.search(r"submitted (\S+):", submitted).group(1)
+        jobs, _ = ops_cli(["jobs", "--address", sdir], env, tmp)
+        check(re.search(rf"^{re.escape(sid)}\s+SUCCEEDED\s", jobs, re.M),
+              f"[ops-up-job] `ca jobs` does not show {sid} SUCCEEDED: {jobs}")
+        rest = http_json(f"{url}/api/jobs/{sid}")
+        check(rest["status"] == "SUCCEEDED", f"[ops-up-job] /api/jobs/{sid}: {rest}")
+        client = JobSubmissionClient(sdir)
+        connected = True
+        logs = client.get_job_logs(sid)
+        check(client.get_job_status(sid) == "SUCCEEDED", f"[ops-up-job] {sid}: {logs[-3000:]}")
+        got = json.loads(re.search(r"^OPS_JOB (.*)$", logs, re.M).group(1))
+        pids = ops_session_pids(sdir)
+        log(f"[ops-up-job] {heartbeat_report(sdir)}")
+    finally:
+        if connected:
+            import cluster_anywhere_tpu_torch as ca
+
+            ca.shutdown()
+        down = subprocess.run([sys.executable, "-m", "cluster_anywhere_tpu_torch.cli", "down",
+                               "--address", sdir], env=env, cwd=tmp, capture_output=True,
+                              text=True, timeout=OPS_WAIT_S)
+    check(down.returncode == 0, f"[ops-up-job] `ca down` exited {down.returncode}: {down.stderr}")
+    gone = wait_gone(pids, "the ops-up-job session")
+    check(got["node"] == node,
+          f"[ops-up-job] the actor ran on {got['node']}, not the GPU node {node}")
+    check(got["launches"] == [per_layer, 0, 0],
+          f"[ops-up-job] the actor launched (fwd, dQ, dK/dV) {got['launches']}, want "
+          f"({per_layer}, 0, 0)")
+    check(got["driver_launches"] == [0, 0, 0] and got["driver_visible"] == "",
+          f"[ops-up-job] the job's driver launched {got['driver_launches']} with "
+          f"CUDA_VISIBLE_DEVICES={got['driver_visible']!r}")
+    differing = tokens_vs_generate(torch, cfg, device, gen_tokens, got["tokens"],
+                                   "the job's actor", "ops-up-job")
+    log(f"[ops-up-job] `ca up` (a head of 2 CPUs and no GPU, one node of 2 CPUs and 1 GPU) to the "
+        f"GPU node alive {up_s:.2f} s; `ca status` GPU 1 / 1, `ca list nodes` and the dashboard's "
+        f"/api/nodes GPU 1 on {node} alone; `ca submit -- python job.py` to SUCCEEDED "
+        f"{submit_s:.2f} s (`ca jobs` and /api/jobs/{sid} SUCCEEDED), the num_gpus=1 actor ready "
+        f"in {got['ready_s']:.2f} s on {got['node']} (CUDA_VISIBLE_DEVICES "
+        f"{got['visible']!r}), generate {got['ms']:.1f} ms; the job's tokens (its logs through "
+        f"JobSubmissionClient) equal to the generate cell's on {B - differing} of {B} rows, the "
+        f"rest near-ties; launches (fwd, dQ, dK/dV) in the actor {tuple(got['launches'])}, in the "
+        f"job's driver {tuple(got['driver_launches'])} (CUDA_VISIBLE_DEVICES "
+        f"{got['driver_visible']!r}, torch imported {got['driver_torch']}); `ca down`: none of "
+        f"{len(pids)} processes of the session left ({gone:.1f} s); the cell "
+        f"{time.perf_counter() - t_cell:.1f} s; {card}")
+    return tuple(got["launches"])
+
+
+def ops_autoscale(torch, ca, cfg, device, gen_tokens, card, per_layer):
+    """ops-autoscale: a Cluster whose head has no GPU, an Autoscaler over
+    AgentNodeProvider with one GPU node type; a num_gpus=1 actor makes it
+    launch the node, runs the generate cell there, and is killed; the node
+    is terminated once idle.  Returns the actor's launches."""
+    from cluster_anywhere_tpu_torch.autoscaler import (AgentNodeProvider, Autoscaler,
+                                                       AutoscalerConfig, NodeType)
+    from cluster_anywhere_tpu_torch.cluster_utils import Cluster
+
+    t_cell = time.perf_counter()
+    c = Cluster(head_resources={"CPU": 2})
+    pids, asc = [], None
+    try:
+        c.connect()
+        provider = AgentNodeProvider()
+        asc = Autoscaler(provider, AutoscalerConfig(
+            node_types=[NodeType("gpu1", {"CPU": 2.0, "GPU": 1.0}, max_nodes=1)],
+            idle_timeout_s=OPS_IDLE_S, interval_s=1.0))
+        asc.start()
+        time.sleep(1.5)  # the autoscaler has read the head's demand once
+        ids, lens = generate_prompts(torch, cfg, 0, "cpu")
+        cls, made = ca.remote(num_gpus=1)(ops_generator_class()), []
+        # the creation waits for the actor's placement, on a thread of its
+        # own while this one watches for the node
+        maker = threading.Thread(target=lambda: made.append(cls.remote(cfg_fields(cfg), device)),
+                                 daemon=True)
+        t0 = time.perf_counter()
+        maker.start()
+        node_s, deadline = None, time.monotonic() + OPS_WAIT_S
+        while node_s is None and time.monotonic() < deadline:
+            if any(n["alive"] and not n["is_head_node"] for n in ca.nodes()):
+                node_s = time.perf_counter() - t0
+            else:
+                time.sleep(0.05)
+        check(node_s is not None, "[ops-autoscale] no node joined for the pending GPU actor")
+        maker.join(timeout=OPS_WAIT_S)
+        check(made, "[ops-autoscale] the GPU actor was not created")
+        gen = made[0]
+        got = ca.get(gen.generate.remote(ids.tolist(), lens.tolist(), N_NEW), timeout=OPS_WAIT_S)
+        result_s = time.perf_counter() - t0 - node_s
+        nodes = list(provider.nodes.values())
+        check(len(nodes) == 1 and got["node"] == nodes[0].node_id,
+              f"[ops-autoscale] the actor ran on {got['node']}, the provider's nodes "
+              f"{[n.node_id for n in nodes]}")
+        pids = ops_session_pids(c.session_dir)
+        ca.kill(gen)
+        t_idle = time.perf_counter()
+        deadline = time.monotonic() + OPS_IDLE_S + 10
+        while nodes[0].handle.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.1)
+        gone_s = time.perf_counter() - t_idle
+        check(nodes[0].handle.poll() is not None and not provider.non_terminated_nodes(),
+              f"[ops-autoscale] the idle node was not terminated within {OPS_IDLE_S + 10} s")
+        alive = [n["node_id"] for n in ca.nodes() if n["alive"] and not n["is_head_node"]]
+        check(not alive, f"[ops-autoscale] nodes alive after the termination: {alive}")
+        log(f"[ops-autoscale] {heartbeat_report(c.session_dir)}")
+    finally:
+        if asc is not None:
+            asc.stop()
+        ops_shutdown(c)
+    gone = wait_gone(pids, "the ops-autoscale session")
+    check(got["launches"] == [per_layer, 0, 0],
+          f"[ops-autoscale] the actor launched (fwd, dQ, dK/dV) {got['launches']}")
+    differing = tokens_vs_generate(torch, cfg, device, gen_tokens, got["tokens"],
+                                   "the autoscaled actor", "ops-autoscale")
+    log(f"[ops-autoscale] Autoscaler(AgentNodeProvider(), node type {{'CPU': 2, 'GPU': 1}}, "
+        f"idle_timeout_s {OPS_IDLE_S}, interval 1 s) over a head without a GPU: a num_gpus=1 "
+        f"actor's demand to its node {nodes[0].node_id} alive {node_s:.2f} s, node alive to the "
+        f"first result {result_s:.2f} s (generate {got['ms']:.1f} ms there); tokens equal to the "
+        f"generate cell's on {B - differing} of {B} rows, the rest near-ties; launches in the "
+        f"actor {tuple(got['launches'])}; the actor killed, the idle node terminated and its agent "
+        f"gone {gone_s:.2f} s later (limit {OPS_IDLE_S + 10}); after shutdown none of "
+        f"{len(pids)} processes of the session left ({gone:.1f} s); the cell "
+        f"{time.perf_counter() - t_cell:.1f} s; {card}")
+    return tuple(got["launches"])
+
+
+def ops_preempt_fn():
+    """ops-preempt's training loop, nested so that it travels by value: the
+    flagship from seed 0 on an fsdp mesh as wide as the world, over
+    TorchConfig's gloo group, the train cell's batch on every rank.  Rank 0
+    arms the preemption after step config["arm_at"] of the first attempt;
+    every rank saves a sharded checkpoint when the controller asks for one
+    (should_checkpoint, agreed across the mesh) and after the last step; a
+    resumed attempt loads it.  Each step reports its loss, ms, world and the
+    flash kernels' launches summed over the ranks."""
+
+    def loop(config):
+        import json
+        import os
+        import time
+
+        import torch
+        import torch.distributed as dist
+
+        from cluster_anywhere_tpu_torch import train
+        from cluster_anywhere_tpu_torch.models import (TransformerConfig, load_train_state,
+                                                       make_train_step, train_state,
+                                                       train_state_specs)
+        from cluster_anywhere_tpu_torch.parallel.mesh import MeshSpec, make_mesh, mesh_device
+
+        t_start = time.time()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ctx = train.get_context()
+        rank, world = ctx.get_world_rank(), ctx.get_world_size()
+        with open(os.path.join(config["dir"], f"rank{rank}.node"), "w") as f:
+            f.write(os.environ.get("CA_NODE_ID", "n0"))
+        attn = __import__("cluster_anywhere_tpu_torch.ops.attention", fromlist=["x"])
+
+        def launches():
+            return [attn.flash_attention.launches, attn.flash_bwd_dq.launches,
+                    attn.flash_bwd_dkv.launches]
+
+        cfg = TransformerConfig(**config["cfg"])
+        mesh = make_mesh(MeshSpec(fsdp=world), device=config["device"], backend="gloo")
+        step, init_state = make_train_step(cfg, mesh)
+        model, opt = init_state(0)
+        specs = train_state_specs(cfg)
+        start, load_s, loaded = 0, 0.0, None
+        ck = train.get_checkpoint()
+        if ck is not None:
+            t0 = time.perf_counter()
+            load_train_state(model, opt, ck.load_pytree_sharded(mesh=mesh, specs=specs))
+            load_s = time.perf_counter() - t0
+            with open(os.path.join(ck.path, "ops_meta.json")) as f:
+                loaded = dict(json.load(f), path=ck.path)
+            start = loaded["step"]
+        ids = torch.tensor(config["ids"], device=mesh_device(mesh))
+        for s in range(start + 1, config["steps"] + 1):
+            before = launches()
+            t0 = time.perf_counter()
+            _, _, loss = step(model, opt, {"ids": ids})
+            loss = loss.item()  # ends in a synchronize
+            step_ms = (time.perf_counter() - t0) * 1e3
+            got = torch.tensor([a - b for a, b in zip(launches(), before)], dtype=torch.int64)
+            dist.all_reduce(got)  # every rank's launches (rank 0's reports count)
+            metrics = {"step": s, "loss": loss, "step_ms": step_ms, "world": world,
+                       "launches": got.tolist(), "attempt": ctx.attempt, "t_start": t_start,
+                       "load_s": load_s, "loaded": loaded}
+            if s == config["arm_at"] and start == 0 and rank == 0:
+                open(config["go"], "w").close()
+            want = torch.tensor([int(train.should_checkpoint())])
+            dist.all_reduce(want, op=dist.ReduceOp.MAX)  # one boundary on every rank
+            if want.item() or s == config["steps"]:
+                ckpt = train.Checkpoint(train.shared_checkpoint_dir(s))
+                t0 = time.perf_counter()
+                ckpt.save_pytree_sharded(train_state(model, opt), mesh=mesh, specs=specs)
+                dist.barrier()
+                if rank == 0:
+                    with open(os.path.join(ckpt.path, "ops_meta.json"), "w") as f:
+                        json.dump({"step": s, "world": world}, f)
+                metrics.update(save_ms=(time.perf_counter() - t0) * 1e3, t_save=time.time(),
+                               barrier=bool(want.item()),
+                               save_bytes=sum(os.path.getsize(os.path.join(d, n))
+                                              for d, _, ns in os.walk(ckpt.path) for n in ns))
+                train.report(metrics, checkpoint=ckpt)
+            else:
+                train.report(metrics)
+
+    return loop
+
+
+def ops_one_device_losses(torch, cfg, device, ids, start=0, state=None):
+    """The losses of steps start + 1 to OPS_STEPS of the one-device trainer
+    on the same batch, from the weights of seed 0 or from `state` (a train
+    state tree, as a checkpoint holds it)."""
+    from cluster_anywhere_tpu_torch.models import load_train_state, make_train_step
+
+    step, init_state = make_train_step(cfg, device=device)
+    model, opt = init_state(0)
+    if state is not None:
+        load_train_state(model, opt, state)
+    batch = {"ids": torch.from_numpy(ids).to(device)}
+    losses = [step(model, opt, batch)[2].item() for _ in range(start, OPS_STEPS)]
+    del model, opt, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def ops_preempt(torch, attn, cfg, device, card, b, t):
+    """ops-preempt: two nodes of one GPU each (on one card they share it),
+    TorchTrainer with 2 workers (min 1) on fsdp2, max_failures 0; after
+    step OPS_PREEMPT_AT PreemptionSimulator warns rank 1's node.  Returns
+    the workers' launches."""
+    import shutil
+    import tempfile
+
+    from cluster_anywhere_tpu_torch import train
+    from cluster_anywhere_tpu_torch.cluster_utils import Cluster
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.core.worker import TRAIN_STATS
+    from cluster_anywhere_tpu_torch.util.chaos import PreemptionSimulator
+
+    t_cell = time.perf_counter()
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, t + 1))
+    t0 = time.perf_counter()
+    want = ops_one_device_losses(torch, cfg, device, ids)
+    ref_s = time.perf_counter() - t0
+    zero_launch_counts(attn)
+    tmp = tempfile.mkdtemp(prefix="ops_preempt_")
+    go = os.path.join(tmp, "go")
+    c = Cluster(head_resources={"CPU": 2})
+    pids, sims, agent_exit = [], [], []
+    try:
+        nodes = [c.add_node(num_cpus=2, num_gpus=1) for _ in range(2)]
+        c.connect()
+        c.wait_for_nodes(3, timeout=OPS_WAIT_S)
+        stats0 = dict(TRAIN_STATS)
+
+        def preempter():
+            deadline = time.monotonic() + OPS_DEADLINE_S
+            while not os.path.exists(go) and time.monotonic() < deadline:
+                time.sleep(0.02)
+            with open(os.path.join(tmp, "rank1.node")) as f:
+                victim = f.read()
+            pid = next(n["pid"] for n in api.nodes() if n["node_id"] == victim)
+            sims.append((PreemptionSimulator(victim, kill_after_s=OPS_KILL_AFTER_S).start(),
+                         time.time(), victim))
+            while _pid_alive(pid) and time.time() < sims[0][1] + OPS_KILL_AFTER_S + 5:
+                time.sleep(0.1)
+            agent_exit.append(time.time() - sims[0][1])
+
+        th = threading.Thread(target=preempter, daemon=True)
+        th.start()
+        config = {"cfg": cfg_fields(cfg), "device": device, "ids": ids.tolist(), "steps": OPS_STEPS,
+                  "arm_at": OPS_PREEMPT_AT, "go": go, "dir": tmp}
+        result, fit_s, _ = tl_run(
+            ops_preempt_fn(), config,
+            train.ScalingConfig(num_workers=2, min_workers=1, max_workers=2, use_gpu=True,
+                                gpus_per_worker=1.0),
+            tmp, "ops-preempt", backend_config=train.TorchConfig(backend="gloo"),
+            failure_config=train.FailureConfig(max_failures=0))
+        th.join(timeout=OPS_KILL_AFTER_S + 10)
+        driver = launch_counts(attn)
+        counters = {k: TRAIN_STATS[k] - stats0.get(k, 0) for k in TRAIN_STATS}
+        hist = [m for m in result.metrics_history if "loss" in m]
+        after = [m for m in hist if m["world"] == 1]
+        if result.error is None and after and after[0]["loaded"]:
+            # the one-device run from the checkpoint the survivor loaded
+            t0 = time.perf_counter()
+            state = train.Checkpoint(after[0]["loaded"]["path"]).load_pytree_sharded()
+            want_resumed = ops_one_device_losses(torch, cfg, device, ids, after[0]["step"] - 1,
+                                                 state)
+            del state
+            ref_s += time.perf_counter() - t0
+        pids = ops_session_pids(c.session_dir)
+        events = [(e["event"], round(e["ts"] - sims[0][1], 2),
+                   e.get("node_id") or e.get("actor_id"))
+                  for e in ops_events(c.session_dir) if sims and e["ts"] >= sims[0][1]]
+        log(f"[ops-preempt] {heartbeat_report(c.session_dir)}")
+    finally:
+        for sim, _, _ in sims:
+            sim.stop()
+        ops_shutdown(c)
+        shutil.rmtree(tmp, ignore_errors=True)
+    gone = wait_gone(pids, "the ops-preempt session")
+    check(result.error is None, f"[ops-preempt] the fit failed: {result.error!r}")
+    check(driver == (0, 0, 0), f"[ops-preempt] the driver launched {driver} during the fit")
+    check(len(sims) == 1 and sims[0][2] in nodes,
+          f"[ops-preempt] the preemption did not fire on a node of the gang: {sims}")
+    sim, t_warn, victim = sims[0]
+    steps = [m["step"] for m in hist]
+    check(sorted(set(steps)) == list(range(1, OPS_STEPS + 1))
+          and len(steps) - OPS_STEPS <= OPS_TOL["rerun"],
+          f"[ops-preempt] steps reported {steps}: want 1-{OPS_STEPS}, at most "
+          f"{OPS_TOL['rerun']} run again")
+    check({k: counters.get(k) for k in OPS_COUNTERS} == dict.fromkeys(OPS_COUNTERS, 1),
+          f"[ops-preempt] counters {counters}")
+    barrier = [m for m in hist if m.get("barrier")]
+    loaded = after[0]["loaded"] if after else None
+    check(len(barrier) == 1 and barrier[0]["world"] == 2 and loaded is not None
+          and (loaded["step"], loaded["world"]) == (barrier[0]["step"], 2)
+          and after[-1]["step"] == OPS_STEPS
+          and all(m["world"] == 1 for m in hist[hist.index(after[0]):]),
+          f"[ops-preempt] the barrier checkpoints {[(m['step'], m['world']) for m in barrier]}, "
+          f"then world 1 from {loaded}")
+    # world 2 from seed 0 against the one-device run from seed 0; world 1
+    # against the one-device run from the checkpoint it loaded (the same
+    # weights and batch: a 12-step run that memorises its batch amplifies
+    # the reductions' order, so from seed 0 the later steps drift apart)
+    pairs = [(m, want[m["step"] - 1]) for m in hist if m["world"] == 2]
+    worst = max(abs(m["loss"] - w) / abs(w) for m, w in pairs + list(zip(after, want_resumed)))
+    drift = max(abs(m["loss"] - want[m["step"] - 1]) / abs(want[m["step"] - 1]) for m in after)
+    check(worst <= OPS_TOL["loss_rel"],
+          f"[ops-preempt] a step's loss is {worst:.3g} relative off the one-device run's "
+          f"(limit {OPS_TOL['loss_rel']:g}): {[(m['step'], m['world'], m['loss']) for m in hist]} "
+          f"vs {want} from seed 0 and {want_resumed} from the checkpoint")
+    launches = tuple(map(sum, zip(*(m["launches"] for m in hist))))
+    per_rank = cfg.n_layers if device == "cuda" else 0  # each kernel, a step, a rank
+    check(all(tuple(m["launches"]) == (per_rank * m["world"],) * 3 for m in hist),
+          f"[ops-preempt] launches a step {[m['launches'] for m in hist]}")
+    two = [m["step_ms"] for m in hist if m["world"] == 2][1:]
+    one = [m["step_ms"] for m in after][1:]
+    log(f"[ops-preempt] TorchTrainer, 2 workers on nodes {nodes} (1 GPU each, sharing the card), "
+        f"min_workers 1, FailureConfig(max_failures=0), fsdp2 over TorchConfig's gloo group, the "
+        f"flagship at {cfg.n_layers} layers from seed 0 on the train cell's batch B{b} T{t}: the "
+        f"warning (SIGTERM to {victim}'s agent) after step {OPS_PREEMPT_AT}, the barrier "
+        f"checkpoint at step {barrier[0]['step']} {barrier[0]['t_save'] - t_warn:.2f} s later "
+        f"(save_pytree_sharded {barrier[0]['save_ms']:.0f} ms for "
+        f"{barrier[0]['save_bytes'] / 1e9:.3f} GB); restart to world 1 "
+        f"{after[0]['t_start'] - barrier[0]['t_save']:.2f} s, load "
+        f"{after[0]['load_s']:.2f} s; steps reported {steps} ({len(steps) - OPS_STEPS} run again); "
+        f"step ms (median from each world's second) at world 2 "
+        f"{float(np.median(two)) if two else float('nan'):.1f}, at world 1 "
+        f"{float(np.median(one)) if one else float('nan'):.1f}; fit {fit_s:.2f} s; counters "
+        f"{ {k: counters[k] for k in OPS_COUNTERS} }; "
+        f"losses within {worst:.3g} relative of the one-device run's on the same weights (world 2: "
+        f"from seed 0; world 1: from the checkpoint it loaded; limit {OPS_TOL['loss_rel']:g}; both "
+        f"runs {ref_s:.1f} s here; world 1 against the run from seed 0 {drift:.3g}); the drain's "
+        f"events after the warning (s) {events}; the agent exited {agent_exit[0]:.2f} s after the "
+        f"warning, PreemptionSimulator's SIGKILL (at {OPS_KILL_AFTER_S:g} s) fired "
+        f"{sim.sigkilled}; "
+        f"the workers' launches (fwd, dQ, dK/dV) {launches}, the driver's {driver}; after shutdown "
+        f"none of {len(pids)} processes of the session left ({gone:.1f} s); the cell "
+        f"{time.perf_counter() - t_cell:.1f} s; {card}")
+    return launches
+
+
+def phase_cluster_ops(torch, attn, gen_tokens, device="cuda", cfg=None, b=TRAIN_B, t=TRAIN_T):
+    """Phase 12, the operator's surface, each cell on a session of its own
+    under one watchdog: ops-up-job, ops-autoscale, ops-preempt.
+    `gen_tokens` are the generate cell's tokens (phase 3).  device="cpu"
+    with a small cfg rehearses it on the host.  Returns the launches in
+    the actors and workers (fwd, dQ, dK/dV); the driver's must stay 0."""
+    import shutil
+    import tempfile
+
+    import cluster_anywhere_tpu_torch as ca
+
+    cfg = cfg or flagship()
+    card = gpu_clocks("name,power.limit") if device == "cuda" else "cpu"
+    per_layer = cfg.n_layers if device == "cuda" else 0
+    if gen_tokens is None:
+        ids, lens = generate_prompts(torch, cfg, 0, device)
+        from cluster_anywhere_tpu_torch.models.generate import generate
+        from cluster_anywhere_tpu_torch.models.transformer import init_params
+
+        gen_tokens = generate(init_params(cfg, 0, device=device), ids, cfg=cfg,
+                              max_new_tokens=N_NEW, prompt_lens=lens).cpu().numpy()
+    import gc
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ops_")
+    with watchdog(OPS_DEADLINE_S, "the operator's phase"):
+        zero_launch_counts(attn)
+        try:
+            job = ops_up_job(torch, cfg, device, gen_tokens, card, per_layer, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        scaled = ops_autoscale(torch, ca, cfg, device, gen_tokens, card, per_layer)
+        driver = launch_counts(attn)
+        check(driver == (0, 0, 0), f"the driver launched kernels in phase 12: {driver}")
+        pre = ops_preempt(torch, attn, cfg, device, card, b, t)
+    launches = tuple(map(sum, zip(job, scaled, pre)))
+    log(f"[ops] phase 12 in {time.perf_counter() - t_phase:.1f} s; launches (fwd, dQ, dK/dV) in "
+        f"the actors and the workers {launches} (ops-up-job {job}, ops-autoscale {scaled}, "
+        f"ops-preempt {pre}), in the driver none (ops-up-job, ops-autoscale and ops-preempt's fit)")
+    check(device != "cuda" or all(x > 0 for x in launches),
+          f"a kernel did not launch in phase 12: {launches}")
+    return launches
 
 
 def module_origin(name):
@@ -4027,7 +4680,7 @@ def main() -> int:
     launches = (launches[0] + replica_fwd,) + launches[1:]
     # the processor and train-data cells: the actor's launches read inside
     # it, the train-data launches between zeroed counts
-    data, train_data_loss, train_data_ms = phase_data(torch, attn, cfg, train_ms)
+    data, _, train_data_ms = phase_data(torch, attn, cfg, train_ms)
     log(f"[data paths] launches (fwd, dQ, dK/dV), the processor actor's included: {data}")
     launches = tuple(map(sum, zip(launches, data)))
 
@@ -4066,8 +4719,7 @@ def main() -> int:
     par = phase_parallel(torch, attn)
     launches = tuple(map(sum, zip(launches, par)))
     # the Train library, on a session of its own: its workers' launches
-    tl = phase_train_lib(torch, attn, {"train_ms": train_ms, "train_data_ms": train_data_ms,
-                                       "train_data_loss": train_data_loss})
+    tl = phase_train_lib(torch, attn, {"train_ms": train_ms, "train_data_ms": train_data_ms})
     launches = tuple(map(sum, zip(launches, tl)))
     # the device plane, on a session of its own: the actors' and the RPC
     # wave replica's forward launches
@@ -4080,6 +4732,10 @@ def main() -> int:
     tw = phase_tune_workflow(torch, attn, {"train_loss1": STEP1_LOSS["train"],
                                            "train_ms": train_ms, "gen_tokens": gen_tokens})
     launches = tuple(map(sum, zip(launches, tw)))
+    # the operator's surface, each cell on a session of its own: the launches
+    # in the job's actor, the autoscaled actor and the preempted gang's workers
+    ops = phase_cluster_ops(torch, attn, gen_tokens)
+    launches = tuple(map(sum, zip(launches, ops)))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -71,6 +71,12 @@ LEASE_UNIT_SHAPES = {"cpu": {"CPU": 1.0}}
 BUSY_SILENCE_FACTOR = 2
 BUSY_WINDOW_S, BUSY_CPU_SHARE = 1.0, 0.1
 
+# An actor whose shape fits no node's total fails at once, unless an
+# autoscaler read this head's demand (autoscaler_state) within this many
+# seconds: it then waits as demand for the node the autoscaler launches,
+# as long as the autoscaler keeps reading (autoscaler v2's pending actors).
+AUTOSCALER_WATCH_S = 10.0
+
 # --------------------------------------------------------------------------
 # state records
 # --------------------------------------------------------------------------
@@ -323,6 +329,9 @@ class Head:
         self.pending_pgs: deque = deque()  # PG ids awaiting resources, FIFO
         self._pg_waiters: Dict[str, List[asyncio.Future]] = {}
         self.pending_leases: deque[LeaseReq] = deque()
+        # actors waiting for a node an autoscaler launches: id -> shape
+        self._actor_demands: Dict[str, Dict[str, float]] = {}
+        self._autoscaler_read_at = float("-inf")
         self.leases: Dict[str, str] = {}  # lease_id -> worker_id
         self._lease_shapes: Dict[str, Dict[str, float]] = {}
         self._lease_pg: Dict[str, tuple] = {}  # lease_id -> (pg_id, bundle_index)
@@ -1963,6 +1972,27 @@ class Head:
             is not None
         )
 
+    def _autoscaler_watching(self) -> bool:
+        return time.monotonic() - self._autoscaler_read_at < AUTOSCALER_WATCH_S
+
+    async def _await_autoscaled_node(self, a: ActorRec):
+        """Hold an actor that fits no node as demand (autoscaler_state's
+        pending_demands) until a node it fits joins, the actor is killed,
+        or no autoscaler reads the demand any more; returns the node's view
+        or None."""
+        self._actor_demands[a.actor_id] = dict(a.resources)
+        view = None
+        try:
+            while view is None and a.state != "dead" and self._autoscaler_watching():
+                await asyncio.sleep(0.25)
+                view = scheduling.pick_node(
+                    self._node_views(), a.resources, a.strategy,
+                    self.config.scheduler_spread_threshold,
+                )
+        finally:
+            self._actor_demands.pop(a.actor_id, None)
+        return view
+
     def _fits_eventually(self, a: ActorRec) -> bool:
         """Could the actor place once currently-leased capacity returns?
         True when its shape fits some schedulable node's TOTAL resources —
@@ -2082,6 +2112,10 @@ class Head:
                         self._node_views(), a.resources, a.strategy,
                         self.config.scheduler_spread_threshold,
                     )
+            if view is None and not self._fits_eventually(a) and self._autoscaler_watching():
+                view = await self._await_autoscaled_node(a)
+                if a.state == "dead":
+                    return  # killed while it waited
             ok = view is not None
             if ok:
                 node = self.nodes[view.node_id]
@@ -4955,8 +4989,10 @@ class Head:
     async def _h_autoscaler_state(self, state, msg, reply, reply_err):
         """What the autoscaler reconciler consumes (autoscaler.proto analogue):
         pending demand shapes + current utilization."""
+        self._autoscaler_read_at = time.monotonic()
         reply(
-            pending_demands=[dict(r.shape) for r in self.pending_leases],
+            pending_demands=[dict(r.shape) for r in self.pending_leases]
+            + [dict(d) for d in self._actor_demands.values()],
             total=self._agg_total(),
             available=self._agg_avail(),
             idle_workers=sum(
@@ -5432,6 +5468,21 @@ class Head:
                 if node.state == "draining":
                     self._pub_drain(node)
                     spawn_bg(self._drain_evacuate(node))
+        # HTTP dashboard (dashboard/head.py analogue): zero extra process,
+        # the head answers from its own tables
+        self.dashboard = None
+        try:
+            from ..dashboard import Dashboard
+
+            self.dashboard = Dashboard(self)
+            await self.dashboard.start(
+                getattr(self.config, "head_host", "127.0.0.1"),
+                int(os.environ.get("CA_DASHBOARD_PORT", "0")),
+            )
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            self._log_event("dashboard_failed", error=repr(e))
         # named + exception-logged: a dead monitor/persist loop is a head
         # that stops detecting node death or persisting state — it must
         # warn the moment it dies, not at GC time
@@ -5446,6 +5497,8 @@ class Head:
         await self._shutdown.wait()
         for t in self._ha_tasks:
             t.cancel()
+        if self.dashboard is not None:
+            await self.dashboard.stop()
         await self._teardown()
 
     async def _run_standby(self):
