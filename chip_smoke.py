@@ -177,6 +177,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      on the same weights and batch (world 2 from seed 0, world 1 from the
      checkpoint it loaded), all three kernels launched in the
      workers and none in the driver.  No process of a session is left.
+  13. `ca lint` and `ca microbenchmark --dag` (analysis/, microbenchmark.py),
+     under one watchdog of 75 s: `python -m cluster_anywhere_tpu_torch.cli
+     lint --format json` in a subprocess (exit 0, no finding; the count of
+     findings and of the contract's methods printed), then the port's
+     run_dag_plane(quick=True) on the card (its rows printed: actor-call
+     latency and throughput over RPC and the compiled DAG, TTFT p50 and
+     p99 of each serve arm), its replica's class swapped for the counting
+     ingress from here: both arms (streaming RPC, the compiled stream)
+     answer all 10 requests (2 warm-up, 8 timed) with HTTP 200 and equal
+     event counts (greedy decoding), the compiled arm's on the compiled
+     stream, and each replica launches the forward on the card.
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
@@ -185,7 +196,8 @@ Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
 replica's, the processor actor's, the parallel ranks', the Train
 workers', the Prefiller's, the RPC wave replica's, the Tune trials', the
-workflow step's and phase 12's actors' and workers' included), the
+workflow step's, phase 12's actors' and workers' and phase 13's replicas'
+included), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -992,12 +1004,14 @@ def counting_ingress():
             from cluster_anywhere_tpu_torch.ops import _build
             from cluster_anywhere_tpu_torch.ops.attention import flash_attention
 
+            dev = self.cb.params.device
+            card = dev.type == "cuda"  # a host rehearsal's replica has none
             out = {"pid": os.getpid(), "launches": flash_attention.launches,
-                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
-                   "params": str(self.cb.params.device),
-                   "gpu": torch.cuda.get_device_name(self.cb.params.device),
-                   "allocated_gb": torch.cuda.memory_allocated(self.cb.params.device) / 1e9,
-                   "lib": str(_build.build("flash_fwd")), "handshakes": self.handshakes}
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "params": str(dev),
+                   "gpu": torch.cuda.get_device_name(dev) if card else "cpu",
+                   "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9 if card else 0.0,
+                   "lib": str(_build.build("flash_fwd")) if card else None,
+                   "handshakes": self.handshakes}
             if reset:
                 flash_attention.launches = 0
             return out
@@ -4618,6 +4632,130 @@ def phase_cluster_ops(torch, attn, gen_tokens, device="cuda", cfg=None, b=TRAIN_
     return launches
 
 
+# ----------------------------------------------------------------- phase 13
+
+MB_DEADLINE_S = 75  # the whole phase, under one watchdog: the script's time limit
+MB_REQUESTS = 10  # each serve arm of run_dag_plane(quick=True): 2 warm-up and 8 timed
+
+
+def phase_lint_microbenchmark(torch, attn, device="cuda"):
+    """Phase 13, under one watchdog: `ca lint --format json` in a
+    subprocess (exit 0, no finding; it runs beside the rest), and the port's
+    run_dag_plane(quick=True) on `device`, its replicas' class swapped for
+    counting_ingress() (the module's build_continuous_llm_deployment
+    wrapped from here) and each replica probed just before the runner
+    deletes it, every SSE request's status and event count read through
+    the module's _sse_request.  Both serve arms must answer every request
+    with HTTP 200 and equal event counts (greedy decoding), the compiled
+    arm on the compiled stream and the RPC arm not.  device="cpu"
+    rehearses it on the host.  Returns the replicas' forward launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with watchdog(MB_DEADLINE_S, "phase 13 (ca lint and the microbenchmark's DAG plane)"):
+        lint = subprocess.Popen([sys.executable, "-m", "cluster_anywhere_tpu_torch.cli", "lint",
+                                 "--format", "json"], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=root)
+        try:
+            launches = phase_13_dag_plane(attn, device)
+        finally:
+            out, err = lint.communicate(timeout=60)
+        t_lint = time.perf_counter() - t_phase
+        check(lint.returncode == 0, f"ca lint exited {lint.returncode}: {out[-2000:]} {err[-2000:]}")
+        report = json.loads(out)
+        with open(os.path.join(root, "docs", "PROTOCOL_CONTRACT_TORCH.json")) as f:
+            contract = json.load(f)
+        check(report["ok"] and not report["findings"], f"ca lint found {report['counts']}")
+        log(f"[lint] ca lint --format json: exit 0 (read {t_lint:.1f} s into the phase), "
+            f"{len(report['findings'])} findings ({report['suppressed']} pragma-suppressed), "
+            f"the contract {len(contract['methods'])} RPC methods over "
+            f"{len(contract['surfaces'])} surfaces")
+    log(f"[mb-dag] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_13_dag_plane(attn, device):
+    """run_dag_plane(quick=True) with its replicas counted and probed, and
+    its checks (phase_lint_microbenchmark).  Returns the replicas' forward
+    launches."""
+    from cluster_anywhere_tpu_torch import microbenchmark as mb
+    from cluster_anywhere_tpu_torch import serve
+    from cluster_anywhere_tpu_torch.core import api
+    from cluster_anywhere_tpu_torch.llm import serve_llm
+    from cluster_anywhere_tpu_torch.util import state
+
+    requests, probes, built, pids = [], [], [], []
+    build, delete, sse, shutdown = serve_llm.build_continuous_llm_deployment, serve.delete, \
+        mb._sse_request, api.shutdown
+
+    def counted_build(*args, **kw):
+        built.append(time.perf_counter() - t0)
+        app = build(*args, **kw)
+        app.deployment.func_or_class = counting_ingress()  # same options, the probe added
+        return app
+
+    def probed_delete(name):
+        if name == "llmdag":
+            handle = serve.get_app_handle(name).options(method_name="probe")
+            probes.append(handle.remote().result(timeout_s=30))
+        return delete(name)
+
+    def counted_sse(host, port, path, body=None, timeout=120.0):
+        got = sse(host, port, path, body, timeout)
+        requests.append((os.environ.get("CA_SERVE_COMPILED_DAG"), got[0], got[3],
+                         time.perf_counter() - t0))
+        return got
+
+    def noted_shutdown():
+        pids.extend([w["pid"] for w in state.list_workers()] + [api._head_proc.pid])
+        return shutdown()
+
+    serve_llm.build_continuous_llm_deployment = counted_build
+    serve.delete, mb._sse_request, api.shutdown = probed_delete, counted_sse, noted_shutdown
+    zero_launch_counts(attn)
+    t0 = time.perf_counter()
+    try:
+        rows = mb.run_dag_plane(quick=True, device=None if device == "cuda" else device)
+    finally:
+        serve_llm.build_continuous_llm_deployment = build
+        serve.delete, mb._sse_request, api.shutdown = delete, sse, shutdown
+    dag_s = time.perf_counter() - t0
+    driver = launch_counts(attn)
+    gone_s = wait_gone(pids, "run_dag_plane's three sessions")
+    values = {name: value for name, value, _ in rows}  # the runner printed each row
+    arms = {flag: [(st, n) for f, st, n, _ in requests if f == flag] for flag in ("0", "1")}
+    answered = {flag: [at for f, _, _, at in requests if f == flag] for flag in ("0", "1")}
+    check([len(a) for a in arms.values()] == [MB_REQUESTS] * 2 and
+          all(st == 200 and n > 0 for a in arms.values() for st, n in a),
+          f"run_dag_plane's serve arms did not answer every request: {arms}")
+    check(arms["0"] == arms["1"], f"the two arms' event counts differ: {arms}")
+    check(values["dag serve rpc-stream events"] == values["dag serve compiled events"] > 0,
+          f"the two arms' event rows differ: {values}")
+    check(len(probes) == 2 and all(p["pid"] != os.getpid() for p in probes),
+          f"the two replicas were not probed in processes of their own: {probes}")
+    check(probes[0]["handshakes"] == 0 and probes[1]["handshakes"] >= MB_REQUESTS,
+          f"dag_stream handshakes (rpc-stream, compiled) "
+          f"{[p['handshakes'] for p in probes]}: want 0 and >= {MB_REQUESTS}")
+    check(driver == (0, 0, 0), f"the driver launched kernels in phase 13: {driver}")
+    launches = sum(p["launches"] for p in probes)
+    check(device != "cuda" or (all(p["launches"] > 0 for p in probes) and
+                               all(p["params"].startswith("cuda") for p in probes)),
+          f"a replica of run_dag_plane did not run flash_fwd on the card: {probes}")
+    log(f"[mb-dag] run_dag_plane(quick=True) in {dag_s:.1f} s: {MB_REQUESTS} requests an arm, "
+        f"all HTTP 200, {arms['1'][-1][1]} events a request in both arms; replicas "
+        f"{[(p['gpu'], p['params']) for p in probes]}, flash_fwd launches (rpc-stream, compiled) "
+        f"{[p['launches'] for p in probes]}, dag_stream handshakes "
+        f"{[p['handshakes'] for p in probes]}; TTFT p50/p99 rpc-stream "
+        f"{values['dag serve rpc-stream TTFT p50']:.1f}/{values['dag serve rpc-stream TTFT p99']:.1f}"
+        f" ms, compiled {values['dag serve compiled TTFT p50']:.1f}/"
+        f"{values['dag serve compiled TTFT p99']:.1f} ms; none of the {len(pids)} processes "
+        f"(heads and workers) of its three sessions left {gone_s:.1f} s after it ended")
+    log(f"[mb-dag] timeline (s from the runner's start): rpc-stream "
+        f"replica built {built[0]:.1f}, first answer {answered['0'][0]:.1f}, last "
+        f"{answered['0'][-1]:.1f}; compiled replica built {built[1]:.1f}, first answer "
+        f"{answered['1'][0]:.1f}, last {answered['1'][-1]:.1f}; the runner ended {dag_s:.1f}")
+    return launches
+
+
 def module_origin(name):
     """Whether a module imports here, its version and where from."""
     import importlib
@@ -4736,6 +4874,9 @@ def main() -> int:
     # in the job's actor, the autoscaled actor and the preempted gang's workers
     ops = phase_cluster_ops(torch, attn, gen_tokens)
     launches = tuple(map(sum, zip(launches, ops)))
+    # ca lint, and the microbenchmark's DAG plane: its replicas' launches
+    mb_fwd = phase_lint_microbenchmark(torch, attn)
+    launches = (launches[0] + mb_fwd,) + launches[1:]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -4,9 +4,6 @@ microbenchmark).
 
 Usage: python -m cluster_anywhere_tpu_torch.cli <command> [...]
 (or the `ca` console script when the package is installed).
-
-`ca lint` and `ca microbenchmark` need `analysis/` and `microbenchmark.py`,
-which the port does not have yet: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -907,10 +904,15 @@ def cmd_debug(args):
 
 
 def cmd_lint(args):
-    """Static analysis over this checkout: not ported yet (analysis/)."""
-    from cluster_anywhere_tpu_torch.core.errors import not_ported
+    """Static analysis over this checkout (no cluster needed): `ca lint`,
+    `ca lint --update-baseline`, `ca lint --contract`, `ca lint --format
+    json` — see cluster_anywhere_tpu_torch/analysis/."""
+    from cluster_anywhere_tpu_torch.analysis.lint import main as lint_main
 
-    raise not_ported("`ca lint` (analysis/)", "7")
+    rest = args.rest
+    if rest and rest[0] == "--":
+        rest = rest[1:]
+    raise SystemExit(lint_main(rest))
 
 
 def cmd_dashboard(args):
@@ -1027,18 +1029,113 @@ def cmd_head(args):
 
 
 def cmd_microbenchmark(args):
-    """Single-node microbenchmarks: not ported yet (microbenchmark.py)."""
-    from cluster_anywhere_tpu_torch.core.errors import not_ported
+    """Single-node microbenchmarks (reference _private/ray_perf.py main):
+    the canonical table — tasks/actors sync+async, put/get call rates, put
+    bandwidth, placement-group churn — and one A/B per flag.  `--serve` and
+    `--dag` serve from LLM replicas on the card."""
+    if getattr(args, "saturation", False):
+        from .microbenchmark import head_saturation
 
-    raise not_ported("`ca microbenchmark` (microbenchmark.py)", "8")
+        head_saturation(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "lease_plane", False):
+        # owns its own multi-node clusters (local-grant vs head-grant A/B)
+        from .microbenchmark import run_lease_plane
+
+        run_lease_plane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "owner_plane", False):
+        # owns its own clusters (owner-resident vs centralized object A/B
+        # plus the GC-with-the-head-down proof)
+        from .microbenchmark import run_owner_plane
+
+        run_owner_plane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "metrics_plane", False):
+        # owns its own clusters (node-scrape vs head-RPC metrics A/B plus
+        # the scrape-with-the-head-down proof)
+        from .microbenchmark import run_metrics_plane
+
+        run_metrics_plane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "transfer", False):
+        # owns its own clusters (serial vs windowed pulls on a latency-
+        # injected link, 1 vs 2 sources, f32 vs int8/bf16 quantized ring)
+        from .microbenchmark import run_transfer_plane
+
+        run_transfer_plane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "serve_plane", False):
+        # owns its own clusters (open-loop SSE envelope, shedding and
+        # prefix-cache A/Bs, drain-under-load zero-drop proof)
+        from .microbenchmark import run_serve_plane
+
+        run_serve_plane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "dag", False):
+        # owns its own clusters (compiled-DAG vs RPC actor-call latency and
+        # throughput, 3-actor chain A/B, serve TTFT on/off A/B)
+        from .microbenchmark import run_dag_plane
+
+        run_dag_plane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "train_elastic", False):
+        # owns its own clusters (drain-aware proactive restart vs reactive
+        # poll-failure restart: warning->resumed latency + steps lost)
+        from .microbenchmark import run_train_elastic
+
+        run_train_elastic(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "partition", False):
+        # owns its own clusters (head<->node blackhole mid-workload:
+        # detect->fence->heal timeline + at-most-once commit proof)
+        from .microbenchmark import run_partition_chaos
+
+        run_partition_chaos(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "obsplane", False):
+        # owns its own clusters (flight-recorder cost model: armed record
+        # rate, disabled-path gate, journal memory, tasks/s on/off A/B)
+        from .microbenchmark import run_obsplane
+
+        run_obsplane(quick=getattr(args, "quick", False))
+        return
+    if getattr(args, "ha", False):
+        # owns its own clusters (SIGKILL the active head mid-workload:
+        # detect->promote->first-successful-op latency, acked-KV loss=0,
+        # duplicate side effects=0, replication-lag ceiling)
+        from .microbenchmark import run_ha_plane
+
+        run_ha_plane(quick=getattr(args, "quick", False))
+        return
+
+    import cluster_anywhere_tpu_torch as ca
+
+    from . import microbenchmark as mb
+
+    runner = mb.run_microbenchmarks
+    if getattr(args, "multi", False):
+        runner = mb.run_multiclient
+    elif getattr(args, "scalability", False):
+        runner = mb.run_scalability
+    elif getattr(args, "collective", False):
+        runner = mb.run_collective_bw
+
+    ca.init(num_cpus=args.num_cpus)
+    try:
+        runner(quick=getattr(args, "quick", False))
+    finally:
+        ca.shutdown()
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["lint"]:
-        # the whole tail belongs to the lint parser (argparse REMAINDER would
-        # reject leading option tokens such as `ca lint --format json`)
-        cmd_lint(None)
+        # hand the whole tail to the lint parser: argparse REMAINDER would
+        # reject leading option tokens (`ca lint --format json`)
+        from cluster_anywhere_tpu_torch.analysis.lint import main as lint_main
+
+        raise SystemExit(lint_main(argv[1:]))
     p = argparse.ArgumentParser(prog="ca", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 

@@ -23,12 +23,6 @@ def _flight_slice(plane=None):
         return []
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The refusal raised where the port has not reached a feature yet;
-    `item` names its entry in ROADMAP.md's Queue 1."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 class CAError(Exception):
     """Base class for all framework errors."""
 

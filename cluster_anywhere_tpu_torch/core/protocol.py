@@ -120,8 +120,11 @@ class RpcChaos:
     ("method=MS" pairs: every matching send waits MS milliseconds first —
     the straggler-RPC knob, where the failure knob models clean errors).
 
-    The port has no extracted RPC contract to validate method names against,
-    so a misspelled method in a spec never fires.
+    Method names in BOTH specs are validated against the generated RPC
+    contract (docs/PROTOCOL_CONTRACT_TORCH.json, `ca lint --contract`) at
+    parse time: a typo'd method in a chaos spec would otherwise never fire,
+    and its test would pass while injecting nothing.  Unknown names raise
+    immediately.
     """
 
     def __init__(self, spec: str, delay_spec: str = ""):
@@ -133,6 +136,26 @@ class RpcChaos:
         for part in filter(None, (delay_spec or "").split(",")):
             method, _, ms = part.partition("=")
             self._delay[method.strip()] = float(ms or 0.0) / 1000.0
+        if self._budget or self._delay:
+            self._validate_methods()
+
+    def _validate_methods(self) -> None:
+        from ..analysis.contract import load_contract  # lazy: cold path only
+
+        doc = load_contract()
+        if doc is None:
+            return  # no checked-out contract (installed package): best effort
+        known = set(doc.get("methods") or ())
+        if not known:
+            return
+        unknown = sorted((set(self._budget) | set(self._delay)) - known)
+        if unknown:
+            raise ValueError(
+                f"CA_TESTING_RPC_FAILURE/CA_TESTING_RPC_DELAY name unknown "
+                f"RPC method(s) {unknown}: not in the extracted protocol "
+                f"contract ({len(known)} methods; regenerate with `ca lint "
+                f"--contract` if the protocol changed)"
+            )
 
     def maybe_fail(self, method: str):
         left = self._budget.get(method)

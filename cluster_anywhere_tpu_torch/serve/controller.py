@@ -31,12 +31,13 @@ CONTROLLER_NAME = "SERVE_CONTROLLER"
 
 
 class _DeploymentState:
-    def __init__(self, app: str, name: str, deployment_def, init_args, init_kwargs, cfg: DeploymentConfig):
+    def __init__(self, app: str, name: str, payload: bytes, cfg: DeploymentConfig):
         self.app = app
         self.name = name
-        self.deployment_def = deployment_def
-        self.init_args = init_args
-        self.init_kwargs = init_kwargs
+        # the pickled (deployment_def, init_args, init_kwargs): only the
+        # replicas unpickle it, so the controller never imports the user's
+        # code (an LLM deployment's would cost it a torch import)
+        self.payload = payload
         self.cfg = cfg
         self.target = (
             cfg.autoscaling_config.min_replicas
@@ -106,9 +107,8 @@ class ServeController:
                 name = spec["name"]
                 wanted.add(name)
                 cfg: DeploymentConfig = pickle.loads(spec["config"])
-                d_def, init_args, init_kwargs = pickle.loads(spec["payload"])
                 old = app.get(name)
-                st = _DeploymentState(app_name, name, d_def, init_args, init_kwargs, cfg)
+                st = _DeploymentState(app_name, name, spec["payload"], cfg)
                 st.payload_digest = __import__("hashlib").sha256(spec["payload"]).hexdigest()
                 if old is not None:
                     old.retired = True  # a mid-flight reconcile must stop
@@ -462,9 +462,7 @@ class ServeController:
             )
             try:
                 h = Rep.remote(
-                    st.deployment_def,
-                    st.init_args,
-                    st.init_kwargs,
+                    st.payload,
                     st.cfg.user_config,
                     rid,
                     deployment_name=f"{st.app}:{st.name}",

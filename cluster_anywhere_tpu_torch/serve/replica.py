@@ -60,17 +60,21 @@ class Replica:
 
     def __init__(
         self,
-        deployment_def,
-        init_args: tuple,
-        init_kwargs: Dict[str, Any],
+        payload: bytes,
         user_config: Optional[Dict[str, Any]],
         replica_id: str,
         handle_specs: Optional[Dict[str, Any]] = None,
         deployment_name: Optional[str] = None,
     ):
+        import pickle
+
         # late-bind nested DeploymentHandles (model composition): bound
         # sub-deployments arrive as specs and materialize into handles here
         from .router import DeploymentHandle
+
+        # serve.run's pickled (deployment_def, init_args, init_kwargs), which
+        # the controller passes on unread
+        deployment_def, init_args, init_kwargs = pickle.loads(payload)
 
         def resolve(v):
             if isinstance(v, dict) and v.get("__ca_serve_handle__"):

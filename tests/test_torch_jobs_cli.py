@@ -3,9 +3,10 @@
 against the JAX package's, on the CPU.
 
 - In this process: JobInfo, the Grafana JSON (titles aside), the CLI's
-  parsers (`--num-gpus` for `--num-tpus`) and renderers, and `ca lint` /
-  `ca microbenchmark`, which raise until analysis/ and microbenchmark.py
-  are ported.
+  parsers (`--num-gpus` for `--num-tpus`) and renderers, `ca lint` (its
+  rule list equal to the JAX CLI's, a clean run over this checkout) and
+  `ca microbenchmark`, each flag routed to the runner the JAX CLI runs
+  for it (the runners stubbed).
 - One program under each package, in subprocesses of their own started
   with the file: job submission, logs, failure, stop and a job driver that
   joins the cluster, through JobSubmissionClient and through the
@@ -194,13 +195,64 @@ def test_dashboard_reads_names_the_port_emits():
     assert _named_for_jax(tdash._PAGE) == jdash._PAGE
 
 
-@pytest.mark.parametrize("argv, item", [(["lint"], "7"), (["lint", "--format", "json"], "7"),
-                                        (["microbenchmark"], "8"),
-                                        (["microbenchmark", "--quick"], "8")])
-def test_lint_and_microbenchmark_not_ported(argv, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"not ported yet \(ROADMAP Queue 1 item {item}\)"):
-        tcli.main(argv)
+def _exit_and_output(main, argv, capsys):
+    with pytest.raises(SystemExit) as ei:
+        main(argv)
+    return ei.value.code, capsys.readouterr().out
+
+
+def test_lint_rules_match_jax(capsys):
+    t = _exit_and_output(tcli.main, ["lint", "--rules"], capsys)
+    j = _exit_and_output(jcli.main, ["lint", "--rules"], capsys)
+    assert t == j and t[0] == 0 and "pass cancel:" in t[1]
+
+
+def test_lint_json_over_the_checkout_is_clean(capsys):
+    """`ca lint --format json` (no `--` needed) over this checkout: exit 0,
+    no finding, the port's files analyzed."""
+    code, out = _exit_and_output(tcli.main, ["lint", "--format", "json"], capsys)
+    report = json.loads(out)
+    assert code == 0 and report["ok"] and report["findings"] == [] and report["new"] == []
+
+
+RUNNERS = ("run_microbenchmarks", "run_multiclient", "run_scalability", "run_collective_bw",
+           "run_lease_plane", "run_owner_plane", "run_metrics_plane", "run_transfer_plane",
+           "run_serve_plane", "run_dag_plane", "run_train_elastic", "run_partition_chaos",
+           "run_obsplane", "run_ha_plane", "head_saturation")
+
+
+def _routed(pkg, argv, monkeypatch):
+    """The runners `ca microbenchmark argv` called and the init calls it
+    made, with every runner and init/shutdown stubbed."""
+    import importlib
+
+    ca = importlib.import_module(pkg)
+    mb = importlib.import_module(pkg + ".microbenchmark")
+    cli = importlib.import_module(pkg + ".cli")
+    calls = []
+    for name in RUNNERS:
+        monkeypatch.setattr(mb, name, lambda _n=name, **kw: calls.append((_n, kw)))
+    monkeypatch.setattr(ca, "init", lambda **kw: calls.append(("init", kw)))
+    monkeypatch.setattr(ca, "shutdown", lambda: calls.append(("shutdown", {})))
+    cli.main(["microbenchmark"] + argv)
+    monkeypatch.undo()
+    return calls
+
+
+MB_FLAGS = [[], ["--quick"], ["--num-cpus", "2"], ["--saturation"], ["--multi"],
+            ["--scalability"], ["--collective", "--quick"], ["--lease-plane"], ["--owner-plane"],
+            ["--metrics-plane"], ["--transfer"], ["--serve", "--quick"], ["--dag"],
+            ["--train-elastic"], ["--partition"], ["--obsplane"], ["--ha"]]
+
+
+@pytest.mark.parametrize("argv", MB_FLAGS, ids=[" ".join(f) or "default" for f in MB_FLAGS])
+def test_microbenchmark_flag_routes_as_jax(argv, monkeypatch):
+    t = _routed("cluster_anywhere_tpu_torch", argv, monkeypatch)
+    j = _routed("cluster_anywhere_tpu", argv, monkeypatch)
+    assert t == j
+    runners = [name for name, _ in t if name in RUNNERS]
+    assert len(runners) == 1 and t[[n for n, _ in t].index(runners[0])][1] == {
+        "quick": "--quick" in argv}
 
 
 # ------------------------------------------------ a program under each package

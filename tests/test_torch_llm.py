@@ -273,7 +273,10 @@ def test_port_imports_no_jax():
         "       'tune.resource_changing', 'tune.external', 'tune.trial', 'tune.callbacks',\n"
         "       'tune.controller', 'tune.tuner', 'workflow', 'workflow.storage', 'workflow.api',\n"
         "       'cluster_utils', 'jobs', 'cli', 'dashboard', 'util.chaos', 'util.grafana',\n"
-        "       'autoscaler', 'autoscaler.provider', 'autoscaler.reconciler']\n"
+        "       'autoscaler', 'autoscaler.provider', 'autoscaler.reconciler', 'microbenchmark',\n"
+        "       'analysis', 'analysis.engine', 'analysis.contract', 'analysis.lint',\n"
+        "       'analysis.cfg', 'analysis.dataflow', 'analysis.rpc_rules', 'analysis.async_rules',\n"
+        "       'analysis.await_rules', 'analysis.cancel_rules', 'analysis.resource_rules']\n"
         "assert all('cluster_anywhere_tpu_torch.' + m in sys.modules for m in new)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

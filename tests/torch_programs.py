@@ -5,7 +5,8 @@
 <scratch dir> <output path>` for the JAX package and then for the port,
 one after the other, and returns {package: the object the program
 pickled to its output path}, or {package: {"error": ...}} when it failed
-or outlived `timeout`.  A program that outlives it gets SIGTERM, which the
+or outlived `timeout`; `run_under_package(pkg, program, tmp)` runs it
+under one.  A program that outlives it gets SIGTERM, which the
 programs answer by shutting their clusters down, and is killed only after
 `shutdown_wait` seconds.
 
@@ -39,35 +40,38 @@ def _session_root() -> str:
     return root
 
 
+def run_under_package(pkg: str, program: str, tmp, timeout: float = 150,
+                      shutdown_wait: float = 30, env=None):
+    """`program` under one package: the object it pickled, or {"error": ...}."""
+    root = _session_root()
+    scratch = os.path.join(str(tmp), f"{pkg}_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    path = os.path.join(str(tmp), pkg)
+    env = dict(os.environ, **(env or {}), PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               CA_SESSION_DIR_ROOT=root)
+    proc = subprocess.Popen([sys.executable, "-c", program, pkg, scratch, path], env=env,
+                            cwd="/", stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+            try:
+                proc.communicate(timeout=shutdown_wait)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+            return {"error": f"the program did not finish in {timeout} s"}
+        if proc.returncode != 0:
+            return {"error": f"exit {proc.returncode}: {err[-3000:]}"}
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_under_each_package(program: str, tmp, timeout: float = 150,
                            shutdown_wait: float = 30) -> dict:
-    out = {}
-    for pkg in PACKAGES:
-        root = _session_root()
-        scratch = os.path.join(str(tmp), f"{pkg}_scratch")
-        os.makedirs(scratch, exist_ok=True)
-        path = os.path.join(str(tmp), pkg)
-        env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", CA_SESSION_DIR_ROOT=root)
-        proc = subprocess.Popen([sys.executable, "-c", program, pkg, scratch, path], env=env,
-                                cwd="/", stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-        try:
-            try:
-                _, err = proc.communicate(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                proc.terminate()
-                try:
-                    proc.communicate(timeout=shutdown_wait)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.communicate()
-                out[pkg] = {"error": f"the program did not finish in {timeout} s"}
-                continue
-            if proc.returncode != 0:
-                out[pkg] = {"error": f"exit {proc.returncode}: {err[-3000:]}"}
-                continue
-            with open(path, "rb") as f:
-                out[pkg] = pickle.load(f)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-    return out
+    return {pkg: run_under_package(pkg, program, tmp, timeout, shutdown_wait)
+            for pkg in PACKAGES}
