@@ -5,8 +5,9 @@
 
 Phases, each of which raises (and the script exits non-zero) on failure:
   1. build the flash-attention forward (ops/csrc/flash_fwd.cu) and backward
-     (ops/csrc/flash_bwd.cu: the dQ and dK/dV kernels), one nvcc each, both
-     started together; show with cuobjdump that the bf16 Hopper instances
+     (ops/csrc/flash_bwd.cu: the dQ and dK/dV kernels) and the decode
+     attention (ops/csrc/decode_attention.cu), one nvcc each, all started
+     together; show with cuobjdump that the bf16 Hopper instances
      of all three kernels run wgmma (HGMMA) on tiles loaded by TMA
      (UTMALDG); hold each kernel to its plain PyTorch version on the card
      (causal and not, with and without pad, a pad across a key tile or
@@ -14,17 +15,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      an LSE cotangent, the flagship prefill and training shapes, and the
      blocks phase 7's ring and Ulysses attention give the kernels; O and
      the gradients also row by row), and two calls of each kernel on the
-     same inputs to the same bits;
+     same inputs to the same bits; then the decode kernel, row by row, at
+     every d_head, fp32 and bf16, MHA and GQA, on ragged ranges with a
+     free lane, at the flagship's decode step and at the 7B chat cell's
+     cache, where a kernel reading V a row late would fail;
   2. time the kernels, their plain versions and torch's
      scaled_dot_product_attention forward and backward (the yardsticks; the
      port never calls them) at the flagship prefill and training shapes,
-     beside the card's bound for the same work; device time, with the
+     and the decode kernel at the chat cell's cache and the flagship's
+     decode step, beside the card's bound for the same work; device time, with the
      host's launch hidden behind a spin kernel (and, for comparison, with
      the launch in the time); each kernel and its SDPA call in one loop, so
      that their ratio comes from the same clocks, which nvidia-smi samples
      before and after;
   3. batch generation at the flagship width: 8 prompts of 128-512 tokens,
-     32 greedy tokens, against the same call with the plain attention;
+     32 greedy tokens, against the same call with the plain attentions;
   4. a ContinuousLLMServer at the flagship width answering 8 concurrent
      requests that share a system prefix (prefix-cache miss and hits);
      then (after phase 5, its counts zeroed and read on their own) the
@@ -191,13 +196,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 The kernels' launch counts are zeroed just before phases 3-5 (the main
 path) and read just after, and again around each MoE cell: serving
 launches no backward kernel, and every training step launches 8 of each
-kernel; the HTTP and processor cells launch nothing in the driver.
+kernel and no decode kernel; generation and the server launch the decode
+kernel once a layer a decode step (and a suffix token of the prefix
+cache); the HTTP and processor cells launch nothing in the driver.
 Prints whether pyarrow and pandas import (the Data library needs
 neither), a `kernels` JSON line (launches summed over all cells, the
 replica's, the processor actor's, the parallel ranks', the Train
 workers', the Prefiller's, the RPC wave replica's, the Tune trials', the
 workflow step's, phase 12's actors' and workers' and phase 13's replicas'
-included), the
+included; the decode kernel's are the driver's generate and server cells',
+dense and MoE), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -302,7 +310,7 @@ def flagship_prefill_inputs(torch, gen):
 
 
 def phase_build():
-    """Both kernel sources, one nvcc each, started together."""
+    """The kernel sources, one nvcc each, started together."""
     from cluster_anywhere_tpu_torch.ops import _build
 
     libs, errors = {}, {}
@@ -314,7 +322,8 @@ def phase_build():
         except Exception as e:  # reported below; fails the phase
             errors[name] = e
 
-    threads = [threading.Thread(target=build, args=(n,)) for n in ("flash_fwd", "flash_bwd")]
+    names = ("flash_fwd", "flash_bwd", "decode_attention")
+    threads = [threading.Thread(target=build, args=(n,)) for n in names]
     for th in threads:
         th.start()
     for th in threads:
@@ -743,6 +752,153 @@ def phase_bwd_timing(torch, attn, gen):
             dict(ms=ms["dkv"], bound_ms=dkv_b[0], bound_by=dkv_b[1], **common))
 
 
+# --------------------------------------------------------- phases 1-2: decode
+
+# The 7B chat cell's cache (perfbench's dsllm7b.chat): 32 slots, T_max 2560
+# (prompts left-padded into a 2048 bucket, 512 new tokens at most), 32 heads
+# over 32 KV heads of 128, bf16.
+CHAT_SLOTS, CHAT_T_MAX, CHAT_BUCKET, CHAT_HEADS = 32, 2560, 2048, 32
+DECODE_Q_GAIN = 3.0  # scores of standard deviation 3: each softmax row is peaked
+# (start, end) a row of the small cases: every column; pos at T_max - 1; one
+# key; across two chunk boundaries; a free lane; a range ending on one
+DECODE_SMALL_T_MAX = 600
+DECODE_SMALL_RANGES = ((0, 600), (599, 600), (10, 11), (250, 520), (300, 300), (37, 256))
+
+
+def chat_decode_ranges(rng, live):
+    """[start, end) of each of the chat cell's slots: prompts of the chat
+    mix's lengths (lognormal, median 512, sigma 0.8, 32-2048) left-padded
+    into the bucket, and a uniform share of their outputs (median 128,
+    sigma 0.7, 16-512) decoded; the slots from `live` on are free (an
+    empty range)."""
+    plen = np.clip(rng.lognormal(np.log(512), 0.8, CHAT_SLOTS), 32, 2048).astype(int)
+    out = np.clip(rng.lognormal(np.log(128), 0.7, CHAT_SLOTS), 16, 512).astype(int)
+    gen = np.maximum(1, (rng.random(CHAT_SLOTS) * out).astype(int))
+    start, end = CHAT_BUCKET - plen, CHAT_BUCKET + gen
+    start[live:] = end[live:]
+    return start, end
+
+
+def flagship_decode_ranges():
+    """[start, end) of the generate cell's rows at its eighth decode step
+    (pad..pos), with row 0 at pos T_max - 1 and the last row free."""
+    start, end = T - prompt_lens(), np.full(B, T + 8)
+    end[0] = T + N_NEW
+    start[-1] = end[-1]
+    return start, end
+
+
+def decode_inputs(torch, gen, b, t_max, h, kv, d, dtype):
+    q = (DECODE_Q_GAIN * torch.randn((b, 1, h, d), generator=gen, device="cuda")).to(dtype)
+    k, v = (torch.randn((b, t_max, kv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def phase_decode_check(torch, attn, gen):
+    """The decode kernel against its plain version (which masks where the
+    kernel skips): at every d_head, fp32 and bf16, MHA and a group of 4, on
+    ranges over and across its 256-column chunks; at the flagship's decode
+    step (bf16, 8 heads over 4 of 128: a group of 2); and at the chat cell's
+    cache with 4 free slots, a one-key range and pos at T_max - 1.  Each
+    live output row is held to its own norm (ROW_TOL); a free lane must
+    read 0 exactly; two calls give the same bits; and the plain version
+    reading every key's V one cache row late must fail the same tolerance,
+    so a kernel off by a row there could not pass.  Returns the widest
+    |O| error of the flagship and chat cases."""
+    rng = np.random.default_rng(0)
+    chat = chat_decode_ranges(rng, CHAT_SLOTS - 4)
+    chat[1][0] = CHAT_T_MAX  # slot 0 at pos T_max - 1
+    chat[0][1] = chat[1][1] - 1  # slot 1 reads one key
+    cases = []  # (name, B, T_max, H, KV, D, dtype, (start, end))
+    small = tuple(np.array(x) for x in zip(*DECODE_SMALL_RANGES))
+    for d in attn.KERNEL_D_HEADS:
+        for dtype in ("float32", "bfloat16"):
+            for h, kv in ((4, 4), (8, 2)):
+                cases.append((f"B6 Tmax{DECODE_SMALL_T_MAX} H{h} KV{kv} D{d}", 6,
+                              DECODE_SMALL_T_MAX, h, kv, d, dtype, small))
+    cfg = flagship()
+    cases.append((f"flagship decode B{B} Tmax{T + N_NEW} H{cfg.n_heads} KV{cfg.n_kv_heads} "
+                  f"D{cfg.d_head}", B, T + N_NEW, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                  "bfloat16", flagship_decode_ranges()))
+    cases.append((f"chat cache B{CHAT_SLOTS} Tmax{CHAT_T_MAX} H{CHAT_HEADS} KV{CHAT_HEADS} D128",
+                  CHAT_SLOTS, CHAT_T_MAX, CHAT_HEADS, CHAT_HEADS, 128, "bfloat16", chat))
+    worst = 0.0
+    for name, b, t_max, h, kv, d, dtype, (start, end) in cases:
+        q, k, v = decode_inputs(torch, gen, b, t_max, h, kv, d, getattr(torch, dtype))
+        s_t, e_t = torch.tensor(start, device="cuda"), torch.tensor(end, device="cuda")
+        o = attn.decode_attention(q, k, v, s_t, e_t)
+        again = attn.decode_attention(q, k, v, s_t, e_t)
+        torch.cuda.synchronize()
+        same = torch.equal(o, again)
+        want = attn._decode_attention_plain(q, k, v, s_t, e_t, d ** -0.5)
+        # a kernel that read every key's V one cache row late (K and V late
+        # together would only shift the range by a column)
+        late = attn._decode_attention_plain(q, k, v.roll(-1, 1), s_t, e_t, d ** -0.5)
+        live = torch.tensor(end > start, device="cuda")
+        err_o = (o[live].float() - want[live].float()).abs().max().item()
+        row, off = row_errs((o[live], late[live]), (want[live], want[live]))
+        free_zero = bool((o[~live] == 0).all().item())
+        log(f"[decode-kernel] {name} {dtype}, {int(live.sum())} live rows, the longest "
+            f"{int((end - start).clip(0).max())} columns: O err {err_o:.3g}, O row error "
+            f"{row:.3g} (tol {ROW_TOL[dtype]}; V read a row late {off:.3g}), free lanes 0 "
+            f"{free_zero}, two calls the same bits {same}")
+        check(row <= ROW_TOL[dtype] and free_zero and same and off > ROW_TOL[dtype],
+              f"decode_attention disagrees with its plain version on {name} {dtype}")
+        if not name.startswith("B6"):
+            worst = max(worst, err_o)
+    return worst
+
+
+def phase_decode_timing(torch, attn, gen):
+    """The decode kernel at the chat cell's cache (all 32 slots live at the
+    mix's lengths; 4 of them; all over the 2560 columns) and at the
+    flagship's decode step, L2 flushed before each call, in turn in one
+    loop with SDPA's forward under a boolean mask of the same columns (MHA
+    only; the yardstick, which the port never calls); then the plain
+    version.  The bound is bytes: the live K and V rows, q read and O
+    written (4 D FLOPs a key a head are ~1 FLOP a byte).  Returns the chat
+    shape's numbers (the kernels line)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(1)
+    cfg = flagship()
+    shapes = {  # name -> (B, T_max, H, KV, (start, end))
+        "chat": (CHAT_SLOTS, CHAT_T_MAX, CHAT_HEADS, CHAT_HEADS,
+                 chat_decode_ranges(rng, CHAT_SLOTS)),
+        "chat4": (CHAT_SLOTS, CHAT_T_MAX, CHAT_HEADS, CHAT_HEADS, chat_decode_ranges(rng, 4)),
+        "full": (CHAT_SLOTS, CHAT_T_MAX, CHAT_HEADS, CHAT_HEADS,
+                 (np.zeros(CHAT_SLOTS, int), np.full(CHAT_SLOTS, CHAT_T_MAX))),
+        "flagship": (B, T + N_NEW, cfg.n_heads, cfg.n_kv_heads, flagship_decode_ranges()),
+    }
+    d, found = 128, {}
+    for name, (b, t_max, h, kv, (start, end)) in shapes.items():
+        q, k, v = decode_inputs(torch, gen, b, t_max, h, kv, d, torch.bfloat16)
+        s_t, e_t = torch.tensor(start, device="cuda"), torch.tensor(end, device="cuda")
+        fns = {"kernel": lambda: attn.decode_attention(q, k, v, s_t, e_t)}
+        if h == kv:
+            cols = torch.arange(t_max, device="cuda")
+            mask = ((cols >= s_t[:, None]) & (cols < e_t[:, None]))[:, None, None, :]
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            fns["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        ms = time_cold_in_turn(torch, fns)
+        plain_ms = time_cold(torch, lambda: attn._decode_attention_plain(
+            q, k, v, s_t, e_t, d ** -0.5), reps=7)
+        columns = int((end - start).sum())
+        nbytes = columns * 2 * kv * d * 2 + 2 * q.numel() * 2 + 2 * s_t.numel() * 8
+        bound = nbytes / HBM_BYTES_S * 1e3
+        sdpa = f", sdpa forward {ms['sdpa']:.4f} ms" if "sdpa" in ms else ""
+        log(f"[timing] decode_attention {name}: B{b} Tmax{t_max} H{h} KV{kv} D{d} bf16, "
+            f"{int((end > start).sum())} live rows, {columns} live columns (L2 flushed, median of "
+            f"31, device time, in turn in one loop): kernel {ms['kernel']:.4f} ms{sdpa}; bound "
+            f"{bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB), kernel / bound "
+            f"{ms['kernel'] / bound:.2f}x, {nbytes / ms['kernel'] / 1e9:.2f} TB/s; plain "
+            f"{plain_ms:.4f} ms")
+        found[name] = dict(ms=ms["kernel"], plain_ms=plain_ms, library_ms=ms.get("sdpa"),
+                           bound_ms=bound, bound_by="bytes")
+    return found["chat"]
+
+
 # ----------------------------------------------------------------- phases 3-4
 
 
@@ -786,19 +942,22 @@ def run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms, tag="genera
     from cluster_anywhere_tpu_torch.models.generate import generate
 
     before = attn.flash_attention.launches
+    before_decode = attn.decode_attention.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = generate(model, ids_t, cfg=cfg, max_new_tokens=N_NEW, prompt_lens=lens_t)
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = attn.flash_attention.launches - before
+    decode_launches = attn.decode_attention.launches - before_decode
     check(tuple(out.shape) == (B, N_NEW), f"generate returned {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generated ids out of the vocab")
     check(launches == cfg.n_layers, f"generate launched flash_fwd {launches} times, want {cfg.n_layers}")
+    check_decode_launches(tag, decode_launches, cfg, N_NEW - 1)
     decode_tok_s = B * (N_NEW - 1) / max((total_ms - prefill_ms) / 1e3, 1e-9)
     log(f"[{tag}] flagship B{B} prompts {T} (real {prompt_lens().tolist()}) +{N_NEW} greedy: "
         f"prefill {prefill_ms:.2f} ms, total {total_ms:.2f} ms, decode {decode_tok_s:.1f} tok/s, "
-        f"flash_fwd launches {launches}")
+        f"flash_fwd launches {launches}, decode_attention launches {decode_launches}")
     return out
 
 
@@ -809,6 +968,15 @@ def plain_attention(attn):
         o, lse = attn._flash_attention_plain(
             q, k, v, causal=causal, scale=q.shape[-1] ** -0.5 if scale is None else scale, pad=pad)
         return (o, lse) if return_lse else o
+
+    return plain
+
+
+def plain_decode(attn):
+    """decode_attention with its plain version in place of the kernel."""
+    def plain(q, k_cache, v_cache, start, end, *, scale=None):
+        return attn._decode_attention_plain(
+            q, k_cache, v_cache, start, end, q.shape[-1] ** -0.5 if scale is None else scale)
 
     return plain
 
@@ -824,19 +992,22 @@ MOE_FIRST_LOGIT_TOL = 0.125
 
 
 def compare_with_plain_attention(torch, attn, cfg, model, ids_t, lens_t, out, tag="generate"):
-    """The same generate with the attention forced to the plain version.
-    For an MoE model the first tokens are held with the plain run's routes
-    pinned to the kernel run's (MOE_FIRST_LOGIT_TOL), and compared
-    unpinned beside them."""
+    """The same generate with the attention forced to the plain versions
+    (prefill's and the decode steps').  For an MoE model the first tokens
+    are held with the plain run's routes pinned to the kernel run's
+    (MOE_FIRST_LOGIT_TOL), and compared unpinned beside them."""
+    import importlib
+
     from cluster_anywhere_tpu_torch.models.generate import generate, prefill
 
-    kernel = attn.flash_attention
+    gen_mod = importlib.import_module("cluster_anywhere_tpu_torch.models.generate")
+    kernel, decode_kernel = attn.flash_attention, gen_mod.decode_attention
     routes_k, routes_p = [], []
     plain = plain_attention(attn)
     with torch.no_grad():
         with moe_routes(routes_k):
             logits_k, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
-        attn.flash_attention = plain
+        attn.flash_attention, gen_mod.decode_attention = plain, plain_decode(attn)
         try:
             ref = generate(model, ids_t, cfg=cfg, max_new_tokens=N_NEW, prompt_lens=lens_t)
             with moe_routes(routes_p):
@@ -845,7 +1016,7 @@ def compare_with_plain_attention(torch, attn, cfg, model, ids_t, lens_t, out, ta
                 with moe_routes(routes_k, pin=True):
                     logits_pinned, _ = prefill(model, ids_t, cfg, T + 1, pad=T - lens_t)
         finally:
-            attn.flash_attention = kernel
+            attn.flash_attention, gen_mod.decode_attention = kernel, decode_kernel
     top2 = logits_p.topk(2, dim=-1).values
     log(f"[{tag}] first-token logits, kernel vs plain attention: max |diff| "
         f"{(logits_k - logits_p).abs().max().item():.4g}; plain top-2 gap per row "
@@ -951,6 +1122,7 @@ def phase_server(torch, attn, cfg, tag="server"):
 
     pcfg = server_config(cfg)
     before = attn.flash_attention.launches
+    before_decode = attn.decode_attention.launches
     srv = ContinuousLLMServer(pcfg, slots=8, device="cuda")
     try:
         prompts = server_prompts()
@@ -964,12 +1136,20 @@ def phase_server(torch, attn, cfg, tag="server"):
         srv.check_health()
         launches = attn.flash_attention.launches - before
         check(launches >= 1, "the server never launched flash_fwd")
+        # a decode step's and each prefix-cached admission's suffix tokens'
+        # passes through the layers: one decode kernel a layer each
+        cb = srv.cb
+        suffix = sum(len(r.prompt_ids) - split for r in cb._completed
+                     if cb.prefix_cache is not None and (split := cb._prefix_split(r.prompt_ids)))
+        decode_launches = attn.decode_attention.launches - before_decode
+        check_decode_launches(tag, decode_launches, cfg, stats["decode_steps"] + suffix)
         prompt_len = len(srv.tok.encode(prompts[0]))
         log(f"[{tag}] 8 concurrent requests, prompts {prompt_len} tokens sharing a "
             f"{len(SYSTEM_PROMPT)}-byte system prefix, {N_NEW} tokens each: TTFT p50 "
             f"{np.median(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f} ms; "
             f"{sum(n_tok) / wall:.1f} tok/s over {wall:.2f} s; stats {stats}; "
-            f"flash_fwd launches {launches}")
+            f"flash_fwd launches {launches}, decode_attention launches {decode_launches} "
+            f"({stats['decode_steps']} decode steps and {suffix} suffix tokens)")
         return {"tokens": tokens, "ttft": ttft, "tok_s": sum(n_tok) / wall}
     finally:
         srv.close()
@@ -1518,12 +1698,21 @@ def train_batch(torch, cfg):
 
 
 def launch_counts(attn):
+    """The flash kernels' launches: (forward, dQ, dK/dV)."""
     return (attn.flash_attention.launches, attn.flash_bwd_dq.launches,
             attn.flash_bwd_dkv.launches)
 
 
 def zero_launch_counts(attn):
     attn.flash_attention.launches = attn.flash_bwd_dq.launches = attn.flash_bwd_dkv.launches = 0
+    attn.decode_attention.launches = 0
+
+
+def check_decode_launches(tag, got, cfg, steps):
+    """The decode kernel launched once a layer a decode step."""
+    check(got == cfg.n_layers * steps,
+          f"[{tag}] decode_attention launched {got} times, want {cfg.n_layers} layers x {steps} "
+          f"decode steps = {cfg.n_layers * steps}")
 
 
 def check_serving_launches(tag, counts):
@@ -4795,9 +4984,11 @@ def main() -> int:
     phase_build()
     fwd_err = phase_kernel_check(torch, attn, gen)
     dq_err, dkv_err = phase_bwd_check(torch, attn, gen)
+    decode_err = phase_decode_check(torch, attn, gen)
     log(f"[clocks] clocks.sm, clocks.max.sm before the timing phases: {gpu_clocks()}")
     fwd_timing = phase_kernel_timing(torch, attn, gen)
     dq_timing, dkv_timing = phase_bwd_timing(torch, attn, gen)
+    decode_timing = phase_decode_timing(torch, attn, gen)
     log(f"[clocks] clocks.sm, clocks.max.sm after the timing phases: {gpu_clocks()}")
     cfg, model, ids_t, lens_t, prefill_ms = phase_generate(torch, flagship())
 
@@ -4806,11 +4997,17 @@ def main() -> int:
     out = run_generate(torch, attn, cfg, model, ids_t, lens_t, prefill_ms)
     server = phase_server(torch, attn, cfg)
     serving = launch_counts(attn)
+    serving_decode = attn.decode_attention.launches
     train_ms = phase_train(torch, attn)
     launches = launch_counts(attn)  # ... and ends here
-    log(f"[main path] launches (fwd, dQ, dK/dV): serving {serving}, in all {launches}")
+    decode_launches = attn.decode_attention.launches
+    log(f"[main path] launches (fwd, dQ, dK/dV): serving {serving}, in all {launches}; "
+        f"decode_attention: serving {serving_decode}, in all {decode_launches}")
     check_serving_launches("serving", serving)
     check(all(n > 0 for n in launches), f"a kernel was not launched on the main path: {launches}")
+    check(decode_launches == serving_decode > 0,
+          f"decode_attention launched {serving_decode} times serving, {decode_launches} in all: "
+          f"want some, and none in training")
 
     # the server cell over HTTP: zeroed and read in the driver and, for the
     # launches that count, inside the replica's process
@@ -4828,12 +5025,16 @@ def main() -> int:
     zero_launch_counts(attn)
     mout = run_generate(torch, attn, mcfg, mmodel, ids_t, lens_t, mprefill_ms, "generate-moe")
     counts = {"generate-moe": launch_counts(attn)}
+    decode_launches += attn.decode_attention.launches
     zero_launch_counts(attn)
     phase_server(torch, attn, moe, "server-moe")
     counts["server-moe"] = launch_counts(attn)
+    decode_launches += attn.decode_attention.launches
     zero_launch_counts(attn)
     train_cell(torch, attn, moe, "train-moe")
     counts["train-moe"] = launch_counts(attn)
+    check(attn.decode_attention.launches == 0,
+          f"train-moe launched decode_attention {attn.decode_attention.launches} times")
     log(f"[moe paths] launches (fwd, dQ, dK/dV): {counts}")
     for tag in ("generate-moe", "server-moe"):
         check_serving_launches(tag, counts[tag])
@@ -4891,6 +5092,10 @@ def main() -> int:
          "source": "cluster_anywhere_tpu_torch/ops/csrc/flash_bwd.cu",
          "replaces": "cluster_anywhere_tpu/ops/attention.py:192",
          "launches": launches[2], "max_abs_err": dkv_err, **dkv_timing},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "cluster_anywhere_tpu_torch/ops/csrc/decode_attention.cu",
+         "replaces": "none", "launches": decode_launches, "max_abs_err": decode_err,
+         **decode_timing},
     ]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -9,7 +9,8 @@ different depths decode together in one step with per-row positions:
   length) and its cache rows are copied into its slot between steps.
 - decode: every live slot advances one token per step.  Finished or empty
   slots still compute (their lanes are garbage) but write only to their own
-  frozen cache rows, which the next admit overwrites.
+  frozen cache rows, which the next admit overwrites; their attention gets
+  an empty column range, so it reads none of their K/V.
 - finish: a slot frees the moment its request hits max_new_tokens or eos;
   the next step() can admit into it.
 
@@ -252,7 +253,7 @@ class ContinuousBatcher:
             return torch.from_numpy(a).to(self.device)
 
         nxt, self.cache = _decode_step_rowpos(
-            self.params, self.cache, dev(self._tokens), dev(self._pos), dev(self._pads),
+            self.params, self.cache, dev(self._tokens), dev(self._pos), dev(self._step_pads()),
             dev(self._temps), dev(self._topks), dev(self._topps), self._gen, cfg=self.cfg,
         )
         nxt = nxt.cpu().numpy()
@@ -279,6 +280,13 @@ class ContinuousBatcher:
         return [r for r in self._completed if id(r) not in before]
 
     # ------------------------------------------------------------- internals
+    def _step_pads(self) -> np.ndarray:
+        """The pads a decode step attends from: a live slot's own, and for a
+        free slot pos + 1, an empty range [pos + 1, pos + 1), so that its
+        garbage lane reads no K/V."""
+        free = np.fromiter((r is None for r in self._by_slot), bool, self.slots)
+        return np.where(free, self._pos + 1, self._pads)
+
     def _finish(self, slot: int, req: Request) -> None:
         req.done = True
         self._by_slot[slot] = None

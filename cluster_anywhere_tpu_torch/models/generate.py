@@ -5,12 +5,14 @@ there, one tensor per K and V stacked over layers:
     k, v: [L, B, T_max, H_kv, D]
 Prefill runs the prompt through each block with the flash-attention
 dispatcher (the CUDA kernel on the card) and writes the first T columns;
-decode steps write column `pos` and attend over the whole T_max with a
-position mask.  Where the JAX package scans over layers and donates the
-cache, this port loops over layers in Python and updates the cache in
-place.  Sampling reproduces jax.random.categorical as argmax(logits +
-Gumbel noise), the noise drawn from a torch.Generator on the device, so
-sampled tokens differ from JAX's while greedy tokens are the same.
+decode steps write column `pos` and attend over each row's live columns,
+[pad, pos], through ops.attention.decode_attention (on the card a kernel
+that reads only those columns of the cache, in place).  Where the JAX
+package scans over layers and donates the cache, this port loops over
+layers in Python and updates the cache in place.  Sampling reproduces
+jax.random.categorical as argmax(logits + Gumbel noise), the noise drawn
+from a torch.Generator on the device, so sampled tokens differ from JAX's
+while greedy tokens are the same.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import NEG_INF, attention
+from ..ops.attention import NEG_INF, attention, decode_attention
 from ..parallel.moe import top1_route
 from .transformer import (
     TransformerConfig,
@@ -71,22 +73,6 @@ def _moe_infer(bp, y, cfg: TransformerConfig):
     return torch.cat([dense_pass(y[:, s:s + _MOE_CHUNK]) for s in range(0, t, _MOE_CHUNK)], dim=1)
 
 
-def _masked_attention(q, k_cache, v_cache, valid_len, cfg: TransformerConfig, pad=None):
-    """q: [B, Tq, H, D]; caches: [B, T_max, H, D].  Cache slots >= valid_len
-    (an int, or a tensor broadcasting to [B, 1, 1, T_max]) are masked, as
-    are slots < pad[b].  Probabilities are cast to the activation dtype
-    before P.V."""
-    scale = cfg.d_head ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
-    slots = torch.arange(k_cache.shape[1], device=q.device)[None, None, None, :]
-    mask = slots < valid_len
-    if pad is not None:
-        mask = mask & (slots >= pad[:, None, None, None])
-    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache)
-
-
 def init_cache(cfg: TransformerConfig, batch: int, t_max: int, device):
     shape = (cfg.n_layers, batch, t_max, cfg.n_kv_heads, cfg.d_head)
     return {
@@ -95,10 +81,12 @@ def init_cache(cfg: TransformerConfig, batch: int, t_max: int, device):
     }
 
 
-def _block_decode(bp, x, layer_cache, pos: int, cfg: TransformerConfig, pad=None):
+def _block_decode(bp, x, layer_cache, pos: int, cfg: TransformerConfig, pad, cols):
     """One block, one token at cache column `pos` for every row.  x: [B, 1, E];
     layer_cache: (k, v) [B, T_max, KV, D], written in place.  pad: [B]
-    left-pad counts; the token's RoPE position is pos - pad[b]."""
+    left-pad counts or None; the token's RoPE position is pos - pad[b].
+    cols: the [B] tensors (start, end) of the columns each row attends to,
+    the same in every layer."""
     k_cache, v_cache = layer_cache
     y = _rms_norm(x, bp["ln1"])
     q, k, v = _project_qkv(bp, y, cfg)
@@ -109,9 +97,7 @@ def _block_decode(bp, x, layer_cache, pos: int, cfg: TransformerConfig, pad=None
     q, k = _rope(q, k, positions, cfg)
     k_cache[:, pos] = k[:, 0]
     v_cache[:, pos] = v[:, 0]
-    attn = _masked_attention(
-        q, _gqa_repeat(k_cache, cfg), _gqa_repeat(v_cache, cfg), pos + 1, cfg, pad
-    )
+    attn = decode_attention(q, k_cache, v_cache, *cols)
     x = x + attn.reshape(x.shape[0], 1, -1) @ bp["wo"]
     return _mlp(bp, x, cfg)
 
@@ -119,7 +105,8 @@ def _block_decode(bp, x, layer_cache, pos: int, cfg: TransformerConfig, pad=None
 def _block_decode_rowpos(bp, x, layer_cache, pos, cfg: TransformerConfig, pads):
     """One block, one token, PER-ROW cache positions (continuous batching).
     x: [B, 1, E]; pos, pads: [B] long tensors; row b writes column pos[b],
-    takes RoPE position pos[b] - pads[b] and attends to [pads[b], pos[b]]."""
+    takes RoPE position pos[b] - pads[b] and attends to [pads[b], pos[b]]
+    (an empty range when pads[b] is pos[b] + 1: a free slot's lane)."""
     k_cache, v_cache = layer_cache
     y = _rms_norm(x, bp["ln1"])
     q, k, v = _project_qkv(bp, y, cfg)
@@ -127,10 +114,7 @@ def _block_decode_rowpos(bp, x, layer_cache, pos, cfg: TransformerConfig, pads):
     rows = torch.arange(x.shape[0], device=x.device)
     k_cache[rows, pos] = k[:, 0]
     v_cache[rows, pos] = v[:, 0]
-    attn = _masked_attention(
-        q, _gqa_repeat(k_cache, cfg), _gqa_repeat(v_cache, cfg),
-        (pos + 1)[:, None, None, None], cfg, pads,
-    )
+    attn = decode_attention(q, k_cache, v_cache, pads, pos + 1)
     x = x + attn.reshape(x.shape[0], 1, -1) @ bp["wo"]
     return _mlp(bp, x, cfg)
 
@@ -172,8 +156,11 @@ def decode_one(params: TransformerLM, cache, token, pos: int, cfg: TransformerCo
     """token: [B] -> (logits [B, V] fp32, cache updated in place)."""
     w = params.compute_weights()
     x = w["embed"][token][:, None, :]
+    b = x.shape[0]
+    start = torch.zeros(b, dtype=torch.long, device=x.device) if pad is None else pad
+    cols = (start, torch.full((b,), pos + 1, dtype=torch.long, device=x.device))
     for i, bp in enumerate(w["blocks"]):
-        x = _block_decode(bp, x, (cache["k"][i], cache["v"][i]), pos, cfg, pad)
+        x = _block_decode(bp, x, (cache["k"][i], cache["v"][i]), pos, cfg, pad, cols)
     x = _rms_norm(x, w["ln_f"])
     return (x[:, 0] @ w["lm_head"]).float(), cache
 

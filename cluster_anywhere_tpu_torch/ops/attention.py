@@ -1,5 +1,6 @@
 """Attention for the port: the flash-attention forward (csrc/flash_fwd.cu)
-and backward (csrc/flash_bwd.cu: the dQ and the dK/dV kernels) as CUDA
+and backward (csrc/flash_bwd.cu: the dQ and the dK/dV kernels) and the
+decode step's attention over a KV cache (csrc/decode_attention.cu) as CUDA
 kernels, their plain PyTorch versions, the dense reference, and the
 dispatcher the model calls.
 
@@ -384,6 +385,134 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
 
 
 flash_attention.launches = 0
+
+
+# ------------------------------------------------------------------ decode
+
+
+def _decode_attention_plain(q, k_cache, v_cache, start, end, scale: float):
+    """Plain PyTorch version of the decode kernel: q [B, 1, H, D] against
+    the cache columns [start[b], end[b]) of k_cache, v_cache [B, T_max, KV,
+    D], query head h reading KV head h // (H / KV).  Scores and softmax in
+    fp32 over the whole cache with the other columns at -1e30 (a row with no
+    column left softmaxes uniformly); probabilities cast to q's dtype before
+    P.V, as the JAX package's _masked_attention does."""
+    rep = q.shape[2] // k_cache.shape[2]
+    if rep > 1:  # jnp.repeat along the heads, as models.transformer._gqa_repeat
+        k_cache = k_cache.repeat_interleave(rep, dim=2)
+        v_cache = v_cache.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    slots = torch.arange(k_cache.shape[1], device=q.device)[None, None, None, :]
+    mask = (slots < end[:, None, None, None]) & (slots >= start[:, None, None, None])
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache)
+
+
+def check_decode_inputs(q, k_cache, v_cache, start, end) -> None:
+    """Raise ValueError on what the decode kernel does not take: q [B, 1, H,
+    D], caches [B, T_max, KV, D] of q's dtype (bf16 or fp32) with KV
+    dividing H, D in KERNEL_D_HEADS, start and end [B] integer tensors, all
+    on one device; and caches it cannot read in place (unit stride on D,
+    16-byte-aligned rows)."""
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4:
+        raise ValueError(f"decode_attention wants q [B,1,H,D] and caches [B,T,KV,D], got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}")
+    b, _, h, d = q.shape
+    kv = k_cache.shape[2]
+    if v_cache.shape != k_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv:
+        raise ValueError(f"caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if d not in KERNEL_D_HEADS:
+        raise ValueError(f"decode kernel takes d_head in {KERNEL_D_HEADS}, got {d}")
+    if q.dtype not in _KERNEL_DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"decode kernel takes bf16 or fp32 q and caches of one dtype, got "
+                         f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    for name, x in (("start", start), ("end", end)):
+        if x.shape != (b,) or x.dtype.is_floating_point:
+            raise ValueError(f"{name} must be a [B] integer tensor, got {tuple(x.shape)} {x.dtype}")
+    if any(x.device != q.device for x in (k_cache, v_cache, start, end)):
+        raise ValueError("decode_attention: q, the caches, start and end must be on one device")
+    align = 16 // q.element_size()
+    for x in (k_cache, v_cache):
+        if x.stride(3) != 1 or any(s % align for s in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(f"decode kernel reads the cache in place: it wants unit stride on "
+                             f"d_head and 16-byte-aligned rows, got strides {x.stride()}")
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_entry():
+    """The decode kernel's C entry point (built at first use), its ctypes
+    signature set once, and the cache columns a block takes (the scratch's
+    chunk)."""
+    from ._build import load
+
+    lib = load("decode_attention")
+    fn = lib.decode_attention
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    lib.decode_attention_chunk.restype = ctypes.c_int
+    return fn, lib.decode_attention_chunk()
+
+
+def _decode_attention_cuda(q, k_cache, v_cache, start, end, scale: float):
+    check_decode_inputs(q, k_cache, v_cache, start, end)
+    q = _kernel_layout(q)
+    b, _, h, d = q.shape
+    t_max, kv = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    fn, chunk = _decode_entry()
+    n_chunks = -(-t_max // chunk)
+    o_part = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=dev)
+    ml = torch.empty((b, h, n_chunks, 2), dtype=torch.float32, device=dev)
+    start = start.to(torch.int64).contiguous()
+    end = end.to(torch.int64).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
+            end.data_ptr(), out.data_ptr(), o_part.data_ptr(), ml.data_ptr(),
+            b, h, kv, t_max, d, int(q.dtype == torch.bfloat16),
+            q.stride(0), q.stride(2),
+            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: cudaError_t {err}")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, start, end, *, scale: Optional[float] = None):
+    """One query token a row against its live columns of a KV cache: for
+    row b and query head h of q [B, 1, H, D], softmax(scale q.K^T) V over
+    the columns [start[b], end[b]) of k_cache, v_cache [B, T_max, KV, D],
+    query head h reading KV head h // (H / KV).  start and end are [B]
+    integer tensors on q's device.  Returns [B, 1, H, D] in q's dtype.
+
+    A CUDA tensor launches csrc/decode_attention.cu (and counts the call in
+    `decode_attention.launches`), which reads the caches in place and only
+    the columns in range, or raises on what the kernel does not take; a
+    row with an empty range gets O = 0.  A CPU tensor runs the plain
+    version, which masks the other columns (an empty range gives the
+    uniform average)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _decode_attention_cuda(q, k_cache, v_cache, start, end, scale)
+    if q.device.type == "cpu":
+        return _decode_attention_plain(q, k_cache, v_cache, start, end, scale)
+    raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
+
+
+decode_attention.launches = 0
 
 
 def merge_attention(o1, lse1, o2, lse2):
